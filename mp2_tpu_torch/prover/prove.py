@@ -1,0 +1,293 @@
+"""TP2 circuit data and proof objects: what `prover/batch.prove_batch` and
+the host verifier share.
+
+Port of the parts of `mp2_tpu/prover/prove.py` that the batched prover
+imports: `CircuitData` (compile, fixed-column LDE and Merkle tree, witness
+generation), `Openings`, `Proof`, `_gate_terms`, `_lde_tables`,
+and `_powers_device`.  The serial `prove` is not ported yet; `_shape_key`
+keyed JAX's jit caches and has no use in eager torch.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from mp2_tpu_torch.field import goldilocks as gl
+from mp2_tpu_torch.field.goldilocks import P
+from mp2_tpu_torch.hash import poseidon2_host as p2h
+from mp2_tpu_torch.prover import fri as fri_mod
+from mp2_tpu_torch.prover import ntt
+from mp2_tpu_torch.prover.config import CircuitConfig
+from mp2_tpu_torch.prover.merkle import MerkleTree
+
+SHIFT = gl.MULTIPLICATIVE_GROUP_GENERATOR  # LDE coset shift
+
+
+def _k_coeffs(num_wires: int) -> List[int]:
+    """Pairwise coset-distinct column multipliers: 7^j (7 generates F*)."""
+    ks = []
+    cur = 1
+    for _ in range(num_wires):
+        ks.append(cur)
+        cur = cur * 7 % P
+    return ks
+
+
+@dataclass
+class CircuitData:
+    config: CircuitConfig
+    n: int
+    log_n: int
+    gate_types: List  # [(name, gate_instance)]
+    selector_values: np.ndarray  # (n, T) uint64
+    constants_values: np.ndarray  # (n, num_constants) uint64
+    sigma_values: np.ndarray  # (n, W) uint64
+    k_coeffs: List[int]
+    rows_meta: List  # Row list (for witness gen / debug)
+    dsu_parent: Dict
+    generators: List
+    public_inputs: List
+    device: torch.device = None
+
+    # fixed data on `device`
+    fixed_coeffs: torch.Tensor = None  # (F, n)
+    fixed_lde: torch.Tensor = None  # (F, 8n) natural order
+    fixed_tree: MerkleTree = None
+
+    circuit_digest: Tuple[int, int, int, int] = None
+
+    # ------------------------------------------------------------------ build
+    @staticmethod
+    def compile(builder, device) -> "CircuitData":
+        from mp2_tpu_torch.circuit import gates as G
+
+        cfg = builder.config
+        rows = builder.rows
+        n_real = len(rows)
+        n = max(8, getattr(builder, "_min_rows", 0), 1 << (n_real - 1).bit_length())
+        while len(rows) < n:
+            rows.append(type(rows[0])(G.NoopGate(), []))
+        log_n = n.bit_length() - 1
+
+        # gate-type registry in order of first appearance (constraint order!)
+        gate_types: List = []
+        seen = {}
+        for r in rows:
+            nm = r.gate.name
+            if nm not in seen and r.gate.num_constraints() > 0:
+                seen[nm] = len(gate_types)
+                gate_types.append((nm, r.gate))
+        T = len(gate_types)
+
+        selector_values = np.zeros((n, T), dtype=np.uint64)
+        constants_values = np.zeros((n, cfg.num_constants), dtype=np.uint64)
+        for i, r in enumerate(rows):
+            if r.gate.name in seen:
+                selector_values[i, seen[r.gate.name]] = 1
+            for j, c in enumerate(r.constants):
+                constants_values[i, j] = c
+
+        # sigma from copy classes
+        W = cfg.num_wires
+        ks = _k_coeffs(W)
+        g = ntt._root_of_unity(log_n)
+        x_pows = [1] * n
+        for i in range(1, n):
+            x_pows[i] = x_pows[i - 1] * g % P
+
+        def cell_id(cell):
+            r, c = cell
+            return ks[c] * x_pows[r] % P
+
+        classes: Dict = {}
+        for cell in list(builder.dsu.parent.keys()):
+            root = builder.dsu.find(cell)
+            classes.setdefault(root, []).append(cell)
+        # ensure roots themselves are in their class lists; dedupe
+        for root in list(classes.keys()):
+            classes[root] = sorted(set(classes[root]) | {root})
+
+        sigma_values = np.zeros((n, W), dtype=np.uint64)
+        for i in range(n):
+            for j in range(W):
+                sigma_values[i, j] = cell_id((i, j))
+        for root, cells in classes.items():
+            cells = [c for c in cells if c[0] < n and c[1] < W]
+            cells.sort()
+            m = len(cells)
+            for idx, cell in enumerate(cells):
+                nxt = cells[(idx + 1) % m]
+                sigma_values[cell[0], cell[1]] = cell_id(nxt)
+
+        data = CircuitData(
+            config=cfg,
+            n=n,
+            log_n=log_n,
+            gate_types=gate_types,
+            selector_values=selector_values,
+            constants_values=constants_values,
+            sigma_values=sigma_values,
+            k_coeffs=ks,
+            rows_meta=rows,
+            dsu_parent=builder.dsu,
+            generators=builder.generators,
+            public_inputs=builder.public_inputs,
+            device=torch.device(device),
+        )
+        data._build_fixed()
+        return data
+
+    def _build_fixed(self):
+        """iNTT -> coset LDE -> Merkle cap of the fixed columns, and the
+        circuit digest (hash of the cap and the shape)."""
+        cfg = self.config
+        cap_h = min(cfg.fri.cap_height, self.log_n)
+        cols = np.concatenate(
+            [self.selector_values, self.constants_values, self.sigma_values],
+            axis=1,
+        ).T  # (F, n)
+        vals = gl.from_u64(cols, self.device)
+        self.fixed_coeffs = ntt.intt(vals)
+        self.fixed_lde = ntt.lde(self.fixed_coeffs, cfg.fri.rate_bits, SHIFT)
+        self.fixed_tree = MerkleTree(_tree_leaves(self.fixed_lde), cap_height=cap_h)
+        self.set_digest()
+
+    def set_digest(self):
+        cap = gl.to_u64(self.fixed_tree.cap)
+        flat = [int(v) for row in cap for v in row]
+        self.circuit_digest = p2h.hash_no_pad(
+            flat + [self.n, self.config.num_wires, self.config.num_challenges]
+        )
+
+    @property
+    def num_gate_types(self) -> int:
+        return len(self.gate_types)
+
+    @property
+    def fixed_cap_host(self):
+        return [tuple(int(x) for x in r) for r in gl.to_u64(self.fixed_tree.cap)]
+
+    # ------------------------------------------------------------ witness gen
+    def generate_witness(self, inputs: Dict) -> np.ndarray:
+        values: Dict = {}
+        find = self.dsu_parent.find
+
+        def read(t):
+            return values.get(find(t), 0)
+
+        for t, v in inputs.items():
+            root = find(t)
+            v = v % P
+            prev = values.get(root)
+            if prev is not None and prev != v:
+                raise ValueError(
+                    f"witness conflict at input {t}: {prev} vs {v} "
+                    "(targets connected to the same wire disagree)"
+                )
+            values[root] = v
+        for out, fn in self.generators:
+            root = find(out)
+            v = fn(read) % P
+            prev = values.get(root)
+            if prev is not None and prev != v:
+                raise ValueError(f"witness conflict at {out}: {prev} vs {v}")
+            values[root] = v
+
+        W = self.config.num_wires
+        w = np.zeros((self.n, W), dtype=np.uint64)
+        for (r, c), root in list(self.dsu_parent.parent.items()):
+            if r < self.n and c < W:
+                w[r, c] = values.get(find((r, c)), 0)
+        for root, v in values.items():
+            r, c = root
+            if r < self.n and c < W:
+                w[r, c] = v
+        return w
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def _tree_leaves(lde_nat: torch.Tensor) -> torch.Tensor:
+    """(C, 8n) natural -> bitrev -> leaves (8n, C)."""
+    return fri_mod.bit_reverse(lde_nat).T.contiguous()
+
+
+@lru_cache(maxsize=None)
+def _x_table(log_big: int) -> np.ndarray:
+    return ntt._power_table(ntt._root_of_unity(log_big), 1 << log_big)
+
+
+@lru_cache(maxsize=None)
+def _lde_tables(log_n: int, rate_bits: int):
+    """Host tables on the big coset: x, Z_H(x)^-1, L0(x) (python-int math)."""
+    n = 1 << log_n
+    w_pows = [int(v) for v in _x_table(log_n + rate_bits)]
+    x = [SHIFT * v % P for v in w_pows]
+    zh = [(pow(v, n, P) - 1) % P for v in x]
+    zh_inv = [pow(v, P - 2, P) for v in zh]
+    # L0(x) = (x^n - 1) / (n (x - 1))
+    l0 = [z * pow(n * (v - 1) % P, P - 2, P) % P for v, z in zip(x, zh)]
+    return (
+        np.array(x, dtype=np.uint64),
+        np.array(zh_inv, dtype=np.uint64),
+        np.array(l0, dtype=np.uint64),
+    )
+
+
+def _powers_device(a: torch.Tensor, count: int) -> torch.Tensor:
+    """[1, a, a^2, ...] along a new leading axis (log-depth doubling);
+    a may be batched: (count,) + a.shape."""
+    pows = torch.ones((1,) + tuple(a.shape), dtype=torch.int64, device=a.device)
+    step = a[None]
+    while pows.shape[0] < count:
+        pows = torch.cat([pows, gl.mul(pows, step)], dim=0)
+        step = gl.mul(step, step)
+    return pows[:count]
+
+
+# ---------------------------------------------------------------------------
+# proof object
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Openings:
+    fixed: List[Tuple[int, int]]
+    wires: List[Tuple[int, int]]
+    zs_partials: List[Tuple[int, int]]
+    quotient: List[Tuple[int, int]]
+    zs_next: List[Tuple[int, int]]  # Z columns at g*zeta
+
+    def batch1(self) -> List[Tuple[int, int]]:
+        return self.fixed + self.wires + self.zs_partials + self.quotient
+
+    def flat(self) -> List[Tuple[int, int]]:
+        return self.batch1() + self.zs_next
+
+
+@dataclass
+class Proof:
+    wires_cap: np.ndarray
+    zs_cap: np.ndarray
+    quotient_cap: np.ndarray
+    openings: Openings
+    fri: fri_mod.FriProof
+    public_inputs: List[int]
+
+
+def _gate_terms(data: CircuitData, alg, sel, consts, wires, extras) -> List:
+    """All gate constraint terms x their selector, in canonical order."""
+    terms = []
+    for t, (name, gate) in enumerate(data.gate_types):
+        for c in gate.constraints(alg, wires, consts, extras):
+            terms.append(alg.mul(sel[t], c))
+    return terms
+

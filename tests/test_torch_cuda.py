@@ -1,0 +1,65 @@
+"""K1 and the batched prover on a CUDA card.  These tests skip where there is
+no card.  The file imports no JAX, so it also runs on a machine without it:
+
+    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from mp2_tpu_torch.field import goldilocks as gl
+from mp2_tpu_torch.hash import poseidon2_host as p2h
+from mp2_tpu_torch.ops import poseidon2_cuda as K
+from mp2_tpu_torch.prover.batch import prove_batch
+from mp2_tpu_torch.prover.config import test_config
+from mp2_tpu_torch.prover.serde import proof_sha256, proof_to_dict
+from mp2_tpu_torch.prover.verify import verify
+from mp2_tpu_torch.recursion.tp2_backend import _build_tree_node, tree_node_batch
+
+GOLDEN = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "mp2_tpu_torch", "testdata", "tree_node_golden.json",
+)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; none is available")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_and_host(cuda):
+    """K1 against its plain version, bit for bit, edge lanes included."""
+    rng = np.random.default_rng(3)
+    st = rng.integers(0, gl.P, size=(12, 4099), dtype=np.uint64)
+    st[:, :4] = np.array([0, gl.P - 1, 1 << 32, (1 << 32) - 1], dtype=np.uint64)
+    x = gl.from_u64(st, cuda)
+    before = K.permute_planar.launches
+    got = K.permute_planar(x)
+    assert K.permute_planar.launches == before + 1
+    assert torch.equal(got, K.permute_planar_plain(x))
+    out = gl.to_u64(got)
+    for i in range(8):
+        assert [int(v) for v in out[:, i]] == p2h.permute([int(v) for v in st[:, i]])
+    with pytest.raises(ValueError):
+        K.permute_planar(x[:, ::2])  # not contiguous
+
+
+@pytest.mark.cuda
+def test_prove_batch_on_card_matches_golden(cuda):
+    """B=2 tree-node proofs made on the card equal the JAX package's."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    data, inputs = _build_tree_node(test_config(), cuda)
+    wits, pis = tree_node_batch(data, inputs, golden["batch"], golden["seed"])
+    before = K.permute_planar.launches
+    proofs = prove_batch(data, wits, pis)
+    assert K.permute_planar.launches > before
+    assert [proof_sha256(proof_to_dict(p)) for p in proofs] == golden["proof_sha256"]
+    assert all(verify(data, p) for p in proofs)
