@@ -1,21 +1,36 @@
-"""Drive the PyTorch port's main path once on one NVIDIA card.
+"""Drive the PyTorch port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Builds K1 (the Poseidon2 CUDA kernel) from the sources in this checkout,
-holds it bit for bit against its plain PyTorch version and the host model at
-the shapes the prover gives it, then proves batches of tree-node proofs with
-`mp2_tpu_torch.prover.batch.prove_batch` on the card at both the light
-(`test_config`, B=32) and the production (`CircuitConfig()`, B=8) shape,
-verifies every proof with the port's own verifier, and checks the B=2 light
-proofs against the digests the JAX package wrote
-(`mp2_tpu_torch/testdata/tree_node_golden.json`).  Last, it times ten warm
-batches per shape, the shapes alternating, and prints the median and the
-quartiles of their walls as `tree_node_proofs_per_s*`.
+Builds K1 (the Poseidon2 CUDA kernel) and K2 (the fused-NTT CUDA kernel)
+from the sources in this checkout, both `nvcc` runs started together, and
+holds each bit for bit against its plain PyTorch version at the shapes the
+prover gives it (K1 also against the host model; K2 at every size from 2^1
+to 2^14 with every flag, and the four-step transforms at 2^15 to 2^17).
+Then it drives two paths:
 
-Each phase prints its lines; any mismatch or exception exits non-zero.  The
-second-to-last line is the kernel record as JSON, the last line
-`{"ok": true, "device": {...}}`.  Needs one CUDA card; imports no JAX.
+  tree-node proofs (the map phase): batches of tree-node proofs with
+  `prover/batch.prove_batch` at the light (`test_config`, B=32) and the
+  production (`CircuitConfig()`, B=8) shape, every proof verified by the
+  port's verifier, the B=2 light proofs checked against the digests the JAX
+  package wrote (`mp2_tpu_torch/testdata/tree_node_golden.json`), and ten
+  warm batches per shape timed, alternating, each also with the NTTs on
+  their plain path, printed as `tree_node_proofs_per_s*`;
+
+  fixed-VK recursion (the reduce phase): `RecursionFramework` with a leaf
+  and a 2-child aggregation member at `test_config()` (set digest, standard
+  n, member digests and the proofs of 2 leaves + 1 aggregation checked
+  against `mp2_tpu_torch/testdata/recursion_golden.json`, which the JAX
+  package wrote), then a 16-leaf binary reduce tree proved level by level,
+  its root verified, printed as `fixed_vk_tree_proofs_per_s`; and the same
+  framework at `CircuitConfig()` (set digest and standard n checked, 2
+  leaves + 1 aggregation proved and the root verified).
+
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after, and fails if a kernel of the path was not launched.  Any
+mismatch or exception exits non-zero.  The second-to-last line is the
+kernel record as JSON, the last line `{"ok": true, "device": {...}}`.
+Needs one CUDA card; imports no JAX.
 """
 
 import json
@@ -23,39 +38,70 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
+
+# the wrap batches' eager field ops allocate and free tensors of many sizes;
+# expandable segments keep the freed blocks usable across sizes
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+import torch  # noqa: E402
 
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.hash import poseidon2 as p2
 from mp2_tpu_torch.hash import poseidon2_host as p2h
+from mp2_tpu_torch.ops import _nvcc
+from mp2_tpu_torch.ops import ntt_cuda as N
 from mp2_tpu_torch.ops import poseidon2_cuda as K
+from mp2_tpu_torch.prover import ntt
 from mp2_tpu_torch.prover.batch import prove_batch
 from mp2_tpu_torch.prover.config import CircuitConfig, test_config
 from mp2_tpu_torch.prover.serde import proof_sha256, proof_to_dict
 from mp2_tpu_torch.prover.verify import verify
+from mp2_tpu_torch.recursion import runtime
+from mp2_tpu_torch.recursion.runtime import RecursionFramework
 from mp2_tpu_torch.recursion.tp2_backend import _build_tree_node, tree_node_batch
+from mp2_tpu_torch.utils import trace
 
-GOLDEN = os.path.join("mp2_tpu_torch", "testdata", "tree_node_golden.json")
+TESTDATA = os.path.join("mp2_tpu_torch", "testdata")
 LIGHT_BATCH = 32
 PROD_BATCH = 8
 TIMED_BATCHES = 10
+TREE_LEAVES = 16
+WIRES = 136  # columns of every circuit here (CircuitConfig.num_wires)
+
+# The least time the card could take (bound_ms): H100 SXM, NVIDIA's data
+# sheet and the Hopper white paper.  Device memory moves 3.35 TB/s.  The
+# card has no 64-bit integer multiplier: a 64x64 -> 128 product is four
+# 32-bit limb products, each a low and a high half, so 8 issues of the
+# 32-bit integer multiplier, which runs 64 lanes per SM per clock on 132 SMs
+# at the 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+INT32_MUL_PER_S = 132 * 64 * 1.98e9
+ISSUES_PER_MUL64 = 8
+P2_MULS = (8 * 12 + 22) * 4 + 22 * 12  # S-box and internal-diagonal products
 
 
 def _fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def _time_ms(fn, x, reps):
-    """Mean device time of fn(x) in ms over `reps` calls, after a warm-up."""
-    fn(x)
+def _bound(nbytes, mul64):
+    """(least ms, what bounds it) for `nbytes` moved and `mul64` products."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mul64 * ISSUES_PER_MUL64 / INT32_MUL_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _time_ms(fn, reps):
+    """Mean device time of fn() in ms over `reps` calls, after a warm-up."""
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn(x)
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -70,22 +116,51 @@ def _max_abs_err(a, b):
                for x, y in zip(gl.to_u64(a[diff]), gl.to_u64(b[diff])))
 
 
+def _rand_rows(rng, shape, dev):
+    """Random canonical values with the edge values 0, p-1, 2^32, 2^32-1
+    at the head of every row."""
+    x = rng.integers(0, gl.P, size=shape, dtype=np.uint64)
+    edges = np.array([0, gl.P - 1, 1 << 32, (1 << 32) - 1], dtype=np.uint64)
+    k = min(4, shape[-1])
+    x[..., :k] = edges[:k]
+    return gl.from_u64(x, dev)
+
+
+def _reset_counts():
+    K.permute_planar.launches = 0
+    N.ntt_rows.launches = 0
+
+
+def _read_counts(path, launches):
+    """Record the kernels' launch counts of `path`; fail on a zero."""
+    got = {"K1": K.permute_planar.launches, "K2": N.ntt_rows.launches}
+    launches[path] = got
+    print(f"{path}: K1 launches {got['K1']}, K2 launches {got['K2']}")
+    for name, count in got.items():
+        if count == 0:
+            _fail(f"{path} did not go through {name}")
+    return got
+
+
 def phase_toolchain(card):
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
-    nvcc = subprocess.run([K._nvcc(), "--version"], capture_output=True, text=True)
+    nvcc = subprocess.run([_nvcc.nvcc(), "--version"], capture_output=True, text=True)
     print("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    built = K.build()
-    print(f"K1 build: {time.perf_counter() - t0:.3f} s wall "
-          f"(nvcc {built.seconds:.3f} s) -> {os.path.relpath(built.path)}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip())
+    with ThreadPoolExecutor(2) as ex:  # one nvcc per kernel, both at once
+        builds = {name: ex.submit(mod.build) for name, mod in (("K1", K), ("K2", N))}
+        builds = {name: f.result() for name, f in builds.items()}
+    print(f"kernel builds: {time.perf_counter() - t0:.3f} s wall together")
+    for name, built in builds.items():
+        print(f"{name} build: nvcc {built.seconds:.3f} s -> {os.path.relpath(built.path)}")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas: " + line.strip())
 
 
-def phase_kernel(card):
+def phase_k1(card):
     """K1 against its plain version (bit for bit) and the host model."""
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
@@ -122,76 +197,139 @@ def phase_kernel(card):
         a, b = K.permute_planar(xs), K.permute_planar_plain(xs)
         if not torch.equal(a, b):
             _fail(f"K1 disagrees with its plain version at {lanes} lanes")
-        k_ms = _time_ms(K.permute_planar, xs, 50 if lanes <= n else 10)
-        p_ms = _time_ms(K.permute_planar_plain, xs, 5 if lanes <= n else 2)
-        timings[lanes] = (k_ms, p_ms)
+        k_ms = _time_ms(lambda: K.permute_planar(xs), 50 if lanes <= n else 10)
+        p_ms = _time_ms(lambda: K.permute_planar_plain(xs), 5 if lanes <= n else 2)
+        bound_ms, bound_by = _bound(lanes * 12 * 8 * 2, lanes * P2_MULS)
+        timings[lanes] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by}
         print(f"K1 at {lanes} lanes: kernel {k_ms:.4f} ms "
               f"({lanes / k_ms / 1e3:.1f}M perms/s), plain {p_ms:.4f} ms, "
-              f"identical; {card}")
+              f"bound {bound_ms:.4f} ms ({bound_by}), identical; {card}")
     return err, timings
 
 
-def _prove_and_verify(name, data, inputs, batch):
+def _k2_work(rows, n, twiddle_rows, scale):
+    """(bytes, 64-bit products) of one ntt_rows call."""
+    log_n = n.bit_length() - 1
+    nbytes = 16 * rows * n + 8 * (n - 1) + 8 * twiddle_rows * n
+    muls = rows * (n // 2) * log_n + rows * n * ((twiddle_rows > 0) + scale)
+    return nbytes, muls
+
+
+def phase_k2(card):
+    """K2 against its plain version, bit for bit, at every log n from 1 to
+    14 with every flag; the four-step transforms at 2^15..2^17 against the
+    plain four-step; times at the prover's shapes."""
+    rng = np.random.default_rng(2)
+    dev = torch.device("cuda")
+    err, checks = 0, 0
+    flag_sets = [{}, {"scale": True}, {"bitrev_input": True}, {"twiddle": 4},
+                 {"twiddle": 4, "scale": True, "bitrev_input": True}]
+    for log_n in range(1, N.MAX_LOG_N + 1):
+        n = 1 << log_n
+        # several blocks of 2048 // n rows, the last one ragged at n <= 256;
+        # a multiple of 4 so the 4-row twiddle tiles them
+        rows = 12 if n >= 2048 else 4 * (2048 // n) + 4
+        x = _rand_rows(rng, (rows, n), dev)
+        tw = _rand_rows(rng, (4, n), dev)
+        for inverse in (False, True):
+            for flags in flag_sets:
+                kw = dict(flags)
+                if "twiddle" in kw:
+                    kw["twiddle"] = tw
+                got = N.ntt_rows(x, inverse, **kw)
+                want = N.ntt_rows_plain(x, inverse, **kw)
+                err = max(err, _max_abs_err(got, want))
+                checks += 1
+                if not torch.equal(got, want):
+                    _fail(f"K2 disagrees with its plain version at n=2^{log_n}, "
+                          f"inverse={inverse}, flags={sorted(flags)}")
+    print(f"K2 vs plain: {checks} cases, log n 1..14, both directions, flags "
+          f"none/scale/bitrev_input/twiddle/all; max_abs_err {err} "
+          f"(tolerance 0: bit-exact)")
+
+    for log_n in (15, 16, 17):
+        x = _rand_rows(rng, (3, 1 << log_n), dev)
+        for inverse in (False, True):
+            got = ntt.ntt(x, inverse)
+            before = N.ntt_rows.launches
+            ntt.ntt_rows = N.ntt_rows_plain  # the plain four-step on the card
+            try:
+                want = ntt.ntt(x, inverse)
+            finally:
+                ntt.ntt_rows = N.ntt_rows
+            if N.ntt_rows.launches != before:
+                _fail("the plain four-step launched K2")
+            host = ntt.ntt(x[:1].cpu(), inverse)
+            err = max(err, _max_abs_err(got, want))
+            if not (torch.equal(got, want) and torch.equal(got[:1].cpu(), host)):
+                _fail(f"the four-step NTT at 2^{log_n} (inverse={inverse}) "
+                      f"disagrees with the plain four-step")
+        back = ntt.intt(ntt.ntt(x))
+        if not torch.equal(back, x):
+            _fail(f"intt(ntt(x)) != x at 2^{log_n}")
+    print("four-step NTT at 2^15, 2^16, 2^17 (K2 passes + transposes) equal to "
+          "the plain four-step on the card and on the CPU, both directions; "
+          "intt(ntt(x)) == x")
+
+    # the prover's shapes: wire iNTT of a B=16 batch of 2^13-row wraps and a
+    # B=8 batch of 2^14-row aggregations; both passes of their LDEs
+    shapes = []
+    for batch, log_n in ((16, 13), (8, 14)):
+        shapes.append((f"iNTT ({batch}*{WIRES}, 2^{log_n})", batch * WIRES,
+                       log_n, 0, True))
+    for batch, log_n in ((16, 16), (8, 17)):
+        log1 = log_n // 2
+        log2 = log_n - log1
+        shapes.append((f"LDE 2^{log_n} pass 1 ({batch}*{WIRES}*2^{log2}, 2^{log1})",
+                       batch * WIRES << log2, log1, 1 << log2, False))
+        shapes.append((f"LDE 2^{log_n} pass 2 ({batch}*{WIRES}*2^{log1}, 2^{log2})",
+                       batch * WIRES << log1, log2, 0, False))
+    timings = {}
+    for name, rows, log_n, tw_rows, inverse in shapes:
+        n = 1 << log_n
+        x = _rand_rows(rng, (rows, n), dev)
+        kw = {"scale": inverse}
+        if tw_rows:
+            kw["twiddle"] = _rand_rows(rng, (tw_rows, n), dev)
+        got = N.ntt_rows(x, inverse, **kw)
+        if not torch.equal(got, N.ntt_rows_plain(x, inverse, **kw)):
+            _fail(f"K2 disagrees with its plain version at {name}")
+        del got
+        k_ms = _time_ms(lambda: N.ntt_rows(x, inverse, **kw), 20)
+        p_ms = _time_ms(lambda: N.ntt_rows_plain(x, inverse, **kw), 2)
+        bound_ms, bound_by = _bound(*_k2_work(rows, n, tw_rows, inverse))
+        timings[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+        print(f"K2 at {name}: kernel {k_ms:.4f} ms ({rows * n / k_ms / 1e6:.3f}G "
+              f"points/s), plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), identical; {card}")
+        del x
+        torch.cuda.empty_cache()
+    return err, timings
+
+
+def _prove_and_verify(name, data, inputs, batch, launches):
     wits, pis = tree_node_batch(data, inputs, batch, 0)
     t0 = time.perf_counter()
     prove_batch(data, wits, pis)  # warm-up: lazy tables, kernel module load
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    K.permute_planar.launches = 0
+    _reset_counts()
     proofs = prove_batch(data, wits, pis)
     torch.cuda.synchronize()
-    launches = K.permute_planar.launches
+    _read_counts(name, launches)
     ok = [verify(data, p) for p in proofs]
-    print(f"{name}: B={batch}, warm-up {warm:.3f} s; K1 launches {launches}; "
-          f"verified {sum(ok)}/{batch}")
+    print(f"{name}: B={batch}, warm-up {warm:.3f} s; verified {sum(ok)}/{batch}")
     if not all(ok):
         _fail(f"{name}: the port's verifier rejected a proof")
-    if launches == 0:
-        _fail(f"{name}: the prove did not go through K1")
-    return launches, (data, wits, pis)
+    return data, wits, pis
 
 
-def phase_timing(card, shapes):
-    """TIMED_BATCHES warm batches per shape, the shapes alternating in one
-    process. `shapes` maps a metric name to (data, witnesses, public inputs).
-    Prints each shape's walls, their median and quartiles, and the proofs/s
-    at those walls: the end-to-end metrics."""
-    walls = {metric: [] for metric in shapes}
-    order = list(shapes)
-    for i in range(TIMED_BATCHES):
-        for metric in order if i % 2 == 0 else order[::-1]:
-            t0 = time.perf_counter()
-            prove_batch(*shapes[metric])
-            torch.cuda.synchronize()
-            walls[metric].append(time.perf_counter() - t0)
-    for metric, w in walls.items():
-        batch = len(shapes[metric][2])
-        q1, med, q3 = np.percentile(w, [25, 50, 75])
-        print(f"{metric} walls (s, B={batch}): {', '.join(f'{x:.4f}' for x in w)}")
-        print(f"{metric} {batch / med:.3f} at the median wall {med:.4f} s "
-              f"(q1 {q1:.4f} s -> {batch / q1:.3f}, q3 {q3:.4f} s -> "
-              f"{batch / q3:.3f}; {TIMED_BATCHES} batches); {card}")
-
-
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    with open(GOLDEN) as f:
+def phase_tree_nodes(card, dev, launches):
+    """The map phase: tree-node batches at both shapes, the golden B=2."""
+    with open(os.path.join(TESTDATA, "tree_node_golden.json")) as f:
         golden = json.load(f)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda")
-
-    # 1. device and toolchain
-    phase_toolchain(card)
-
-    # 2. K1 against its plain version and the host model
-    err, timings = phase_kernel(card)
-
-    # 3. the slice at the light shape
     t0 = time.perf_counter()
     data, inputs = _build_tree_node(test_config(), dev)
     print(f"tree_node circuit (test_config) built on the card in "
@@ -199,46 +337,268 @@ def main():
           f"fixed_lde {tuple(data.fixed_lde.shape)}")
     if list(data.circuit_digest) != golden["circuit_digest"]:
         _fail("circuit digest differs from the JAX package's")
-    launches, light = _prove_and_verify("light shape", data, inputs, LIGHT_BATCH)
+    light = _prove_and_verify("tree_node light B=32", data, inputs, LIGHT_BATCH, launches)
 
-    # 4. held against the JAX reference, kernel path and plain path
+    # held against the JAX reference, kernel path and plain path
     wits, pis = tree_node_batch(data, inputs, golden["batch"], golden["seed"])
     digests = [proof_sha256(proof_to_dict(p)) for p in prove_batch(data, wits, pis)]
     if digests != golden["proof_sha256"]:
         _fail(f"B=2 proofs differ from the JAX golden digests: {digests}")
-    p2.permute_planar = K.permute_planar_plain  # the plain path on the card
-    before = K.permute_planar.launches
+    p2.permute_planar = K.permute_planar_plain  # the plain paths on the card
+    ntt.ntt_rows = N.ntt_rows_plain
+    before = (K.permute_planar.launches, N.ntt_rows.launches)
     try:
         plain = [proof_sha256(proof_to_dict(p)) for p in prove_batch(data, wits, pis)]
     finally:
         p2.permute_planar = K.permute_planar
-    if K.permute_planar.launches != before:
-        _fail("the plain-path prove launched K1")
+        ntt.ntt_rows = N.ntt_rows
+    if (K.permute_planar.launches, N.ntt_rows.launches) != before:
+        _fail("the plain-path prove launched a kernel")
     if plain != digests:
-        _fail("the plain path on the card gives other proofs than K1")
+        _fail("the plain path on the card gives other proofs than the kernels")
     print(f"B=2 proofs on the card match the JAX golden digests "
           f"({', '.join(d[:12] for d in digests)}), kernel and plain path alike")
 
-    # 5. the slice at the production shape (16 PoW bits of grinding)
     data, inputs = _build_tree_node(CircuitConfig(), dev)
-    _, production = _prove_and_verify("production shape", data, inputs, PROD_BATCH)
+    production = _prove_and_verify("tree_node production B=8", data, inputs,
+                                   PROD_BATCH, launches)
+    return light, production
 
-    # 6. the end-to-end metrics: median and quartiles of alternating batches
+
+def phase_timing(card, shapes):
+    """TIMED_BATCHES warm batches per shape and NTT route, all alternating in
+    one process.  `shapes` maps a metric name to (data, witnesses, public
+    inputs).  The `_plain_ntt` variants run the NTTs on their plain torch
+    path (the route before K2), everything else as usual.  Prints each
+    variant's walls, their median and quartiles, and the proofs/s at them."""
+    variants = [(metric, route) for metric in shapes for route in ("", "_plain_ntt")]
+    walls = {v: [] for v in variants}
+    for i in range(TIMED_BATCHES):
+        for metric, route in variants if i % 2 == 0 else variants[::-1]:
+            if route:
+                ntt.ntt_rows = N.ntt_rows_plain
+            try:
+                t0 = time.perf_counter()
+                prove_batch(*shapes[metric])
+                torch.cuda.synchronize()
+                walls[(metric, route)].append(time.perf_counter() - t0)
+            finally:
+                ntt.ntt_rows = N.ntt_rows
+    for (metric, route), w in walls.items():
+        batch = len(shapes[metric][2])
+        q1, med, q3 = np.percentile(w, [25, 50, 75])
+        name = metric + route
+        print(f"{name} walls (s, B={batch}): {', '.join(f'{x:.4f}' for x in w)}")
+        print(f"{name} {batch / med:.3f} at the median wall {med:.4f} s "
+              f"(q1 {q1:.4f} s -> {batch / q1:.3f}, q3 {q3:.4f} s -> "
+              f"{batch / q3:.3f}; {TIMED_BATCHES} batches); {card}")
+
+
+def _leaf_build(b):
+    """The framework's leaf member: PIs = H(x)."""
+    x = b.add_input()
+    b.register_public_inputs(b.hash_no_pad([x]))
+
+    def assign(inputs, xv):
+        inputs[x] = xv
+
+    return assign
+
+
+def _agg_build(b, children):
+    """The 2-child aggregation member: PIs = H(h_left || h_right)."""
+    left = children[0].public_inputs()[:4]
+    right = children[1].public_inputs()[:4]
+    b.register_public_inputs(b.hash_no_pad(left + right))
+
+
+def _framework(name, cfg, dev, golden):
+    """Declare, finalize and check a framework against the golden record."""
+    t0 = time.perf_counter()
+    fw = RecursionFramework(cfg, num_user_pis=4, set_height=2, device=dev)
+    t_std = time.perf_counter() - t0
+    fw.add_leaf_circuit("leaf", _leaf_build)
+    fw.add_aggregation_circuit("node", 2, _agg_build)
+    fw.finalize()
+    chains = {m: [fw.members[m].data.n] + [wc.data.n for wc in
+                                           fw._wrap_chain_for(fw.members[m].data)]
+              for m in fw.member_order}
+    print(f"{name} framework: standard shape in {t_std:.3f} s, finalized in "
+          f"{time.perf_counter() - t0:.3f} s on the host and the card; standard "
+          f"n={fw.standard.n}, wrap chains {chains}")
+    if list(fw.set_digest) != golden["set_digest"] or fw.standard.n != golden["standard_n"]:
+        _fail(f"{name}: set digest or standard n differs from the JAX package's")
+    for m in fw.member_order:
+        if list(fw.members[m].digest) != golden["member_digests"][m]:
+            _fail(f"{name}: member {m}'s digest differs from the JAX package's")
+    print(f"{name}: set digest {fw.set_digest[0]:#x}..., standard n and member "
+          f"digests equal to the JAX package's")
+    return fw
+
+
+class _StageLog:
+    """Counts every prove_batch of the recursion runtime: circuit n, B, wall,
+    K1 and K2 launches (a measurement hook of this script only)."""
+
+    def __init__(self):
+        self.stages = []
+        self._orig = runtime.prove_batch
+
+    def __enter__(self):
+        def counted(data, wits, pis):
+            k = (K.permute_planar.launches, N.ntt_rows.launches)
+            t0 = time.perf_counter()
+            out = self._orig(data, wits, pis)
+            torch.cuda.synchronize()
+            self.stages.append({"n": data.n, "B": len(pis),
+                                "s": time.perf_counter() - t0,
+                                "K1": K.permute_planar.launches - k[0],
+                                "K2": N.ntt_rows.launches - k[1]})
+            return out
+
+        runtime.prove_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        runtime.prove_batch = self._orig
+
+
+def _two_leaves_one_aggregation(fw, values):
+    hs = [list(p2h.hash_no_pad([v])) for v in values]
+    leaves = fw.prove_leaves_batch("leaf", [(v,) for v in values], hs)
+    agg_pis = list(p2h.hash_no_pad(hs[0] + hs[1]))
+    (agg,) = fw.prove_aggregations_batch("node", [leaves], [()], [agg_pis])
+    return hs, leaves, agg_pis, agg
+
+
+def phase_recursion_light(card, dev, golden, launches):
+    fw = _framework("light (test_config)", test_config(), dev, golden)
+
+    # the golden inputs: 2 leaves + 1 aggregation, digests from the JAX package
+    t0 = time.perf_counter()
+    hs, leaves, agg_pis, agg = _two_leaves_one_aggregation(fw, golden["leaf_values"])
+    torch.cuda.synchronize()
+    got = [proof_sha256(proof_to_dict(e.proof)) for e in leaves]
+    got_agg = proof_sha256(proof_to_dict(agg.proof))
+    if hs != golden["leaf_public_inputs"] or agg_pis != golden["aggregation_public_inputs"]:
+        _fail("light: the golden inputs differ")
+    if got != golden["leaf_proof_sha256"] or got_agg != golden["aggregation_proof_sha256"]:
+        _fail(f"light: envelope proofs differ from the JAX golden digests: {got}, {got_agg}")
+    if not all(fw.verify(e) for e in leaves + [agg]):
+        _fail("light: fw.verify rejected a golden-input envelope")
+    print(f"light: 2 leaves + 1 aggregation in {time.perf_counter() - t0:.3f} s "
+          f"(first use of each shape); envelope proofs equal to the JAX golden "
+          f"digests ({', '.join(d[:12] for d in got + [got_agg])}); verified")
+
+    # BASELINE config 3: a 16-leaf binary reduce tree, batched per level
+    values = list(range(TREE_LEAVES))
+    torch.cuda.reset_peak_memory_stats()
+    trace.reset()
+    os.environ["MP2_TRACE"] = "1"  # the runtime's spans, one stderr line each
+    _reset_counts()
+    with _StageLog() as log:
+        t0 = time.perf_counter()
+        hs = [list(p2h.hash_no_pad([v])) for v in values]
+        level = fw.prove_leaves_batch("leaf", [(v,) for v in values], hs)
+        n_proofs = len(level)
+        while len(level) > 1:
+            pis = [list(p2h.hash_no_pad(hs[j] + hs[j + 1])) for j in range(0, len(hs), 2)]
+            level = fw.prove_aggregations_batch(
+                "node", [level[j:j + 2] for j in range(0, len(level), 2)],
+                [()] * len(pis), pis)
+            hs = pis
+            n_proofs += len(level)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del os.environ["MP2_TRACE"]
+    counts = _read_counts(f"recursion light tree ({TREE_LEAVES} leaves)", launches)
+    root = level[0]
+    if not fw.verify(root):
+        _fail("light: fw.verify rejected the tree's root")
+    if tuple(root.proof.public_inputs[-4:]) != fw.set_digest or root.user_inputs[:4] != hs[0]:
+        _fail("light: the root's public inputs are not (tree hash, set digest)")
+    spans = trace.report()
+    wit_s = spans.get("witness_batch", (0, 0.0))[1]
+    prove_s = sum(st["s"] for st in log.stages)
+    print(f"light tree: {n_proofs} member proofs ({TREE_LEAVES} leaves, "
+          f"{n_proofs - TREE_LEAVES} aggregations), each wrapped, in {wall:.3f} s; "
+          f"root verified, trailing PIs = set digest")
+    print(f"fixed_vk_tree_proofs_per_s {n_proofs / wall:.4f} ({n_proofs} member "
+          f"proofs / {wall:.3f} s wall, wraps included); {card}")
+    print(f"light tree time: prove_batch {prove_s:.3f} s ({prove_s / wall:.3f}), "
+          f"witness generation {wit_s:.3f} s ({wit_s / wall:.3f}), other host work "
+          f"(child witnesses, hashing, envelopes) {wall - prove_s - wit_s:.3f} s; "
+          f"host share outside prove_batch {(wall - prove_s) / wall:.3f}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for st in log.stages:
+        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
+              f"K1 {st['K1']} launches, K2 {st['K2']} launches")
+    return counts, n_proofs / wall
+
+
+def phase_recursion_production(card, dev, golden, launches):
+    fw = _framework("production (CircuitConfig)", CircuitConfig(), dev, golden)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with _StageLog() as log:
+        t0 = time.perf_counter()
+        _, leaves, _, agg = _two_leaves_one_aggregation(fw, [11, 22])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _read_counts("recursion production (2 leaves + 1 aggregation)", launches)
+    if not fw.verify(agg):
+        _fail("production: fw.verify rejected the aggregation root")
+    print(f"production: 2 leaves + 1 aggregation, each wrapped, in {wall:.3f} s "
+          f"(first use of each shape); root verified; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {card}")
+    for st in log.stages:
+        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
+              f"K1 {st['K1']} launches, K2 {st['K2']} launches")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    with open(os.path.join(TESTDATA, "recursion_golden.json")) as f:
+        rgolden = json.load(f)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    launches = {}
+
+    phase_toolchain(card)
+    k1_err, k1_times = phase_k1(card)
+    k2_err, k2_times = phase_k2(card)
+    light, production = phase_tree_nodes(card, dev, launches)
     phase_timing(card, {"tree_node_proofs_per_s": light,
                         "tree_node_proofs_per_s_production": production})
-    k_ms, p_ms = timings[1 << 20]
-    print(json.dumps({"kernels": [{
-        "name": "poseidon2_permute_planar",
-        "route": "cuda",
-        "source": "mp2_tpu_torch/csrc/poseidon2.cu",
-        "replaces": "mp2_tpu/ops/poseidon2_pallas.py:114",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "lanes": 1 << 20,
-        "by_lanes": {str(k): {"ms": v[0], "plain_ms": v[1]} for k, v in timings.items()},
-    }]}))
+    counts, _ = phase_recursion_light(card, dev, rgolden["light"], launches)
+    phase_recursion_production(card, dev, rgolden["production"], launches)
+
+    k1 = k1_times[1 << 20]
+    k2_shape = f"iNTT (16*{WIRES}, 2^13)"
+    k2 = k2_times[k2_shape]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [
+        {"name": "poseidon2_permute_planar", "route": "cuda",
+         "source": "mp2_tpu_torch/csrc/poseidon2.cu",
+         "replaces": "mp2_tpu/ops/poseidon2_pallas.py:114",
+         "launches": counts["K1"], "max_abs_err": k1_err,
+         **k1, "library_ms": None, "lanes": 1 << 20,
+         "launches_by_path": {p: c["K1"] for p, c in launches.items()},
+         "by_lanes": {str(k): v for k, v in k1_times.items()}},
+        {"name": "ntt_rows", "route": "cuda",
+         "source": "mp2_tpu_torch/csrc/ntt.cu",
+         "replaces": "mp2_tpu/ops/ntt_pallas.py:237",
+         "launches": counts["K2"], "max_abs_err": k2_err,
+         **k2, "library_ms": None, "shape": k2_shape,
+         "launches_by_path": {p: c["K2"] for p, c in launches.items()},
+         "by_shape": k2_times},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -10,36 +10,25 @@ same permutation written with the port's torch field ops.  On a CUDA tensor
 it launches the kernel or raises; it never falls back to the plain version.
 `permute_planar.launches` counts kernel launches.
 
-Build: at first use, `nvcc` compiles the kernel for sm_90a into a shared
-library with a plain C entry under `mp2_tpu_torch/_build/`, in a directory
-keyed by a hash of the sources, the generated round-constant header and the
-flags, and loads it with ctypes.  A failed build raises.
+Build: at first use, `ops/_nvcc.build_library` compiles the kernel for
+sm_90a into a shared library with a plain C entry under
+`mp2_tpu_torch/_build/mp2_poseidon2-<hash>/`, keyed by a hash of the
+sources, the generated round-constant header and the flags, and loads it
+with ctypes.  A failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import time
-from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.hash.constants import ROUNDS_F, ROUNDS_P, WIDTH, load_table
+from mp2_tpu_torch.ops._nvcc import Built, build_library
 
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
 _SOURCES = ("poseidon2.cu", "goldilocks.cuh")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 
 # ---------------------------------------------------------------------------
@@ -63,57 +52,16 @@ def _tables_header() -> str:
     )
 
 
-@dataclass
-class Built:
-    """The loaded kernel library and how it was made."""
-
-    path: Path
-    seconds: float  # nvcc wall time in this process; 0.0 if already built
-    log: str  # nvcc's output (register and spill counts from -Xptxas -v)
-    lib: ctypes.CDLL
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME); cannot build K1")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 @functools.lru_cache(maxsize=None)
 def build() -> Built:
     """Compile (once per source hash) and load the kernel library."""
-    header = _tables_header()
-    h = hashlib.sha256(header.encode() + " ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    out_dir = BUILD_DIR / f"poseidon2-{h.hexdigest()[:16]}"
-    so = out_dir / "libmp2_poseidon2.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp_h = out_dir / f"poseidon2_tables.h.{os.getpid()}.tmp"
-        tmp_h.write_text(header)
-        os.replace(tmp_h, out_dir / "poseidon2_tables.h")
-        tmp = out_dir / f"libmp2_poseidon2.{os.getpid()}.tmp.so"
-        cmd = [
-            _nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-I", str(_CSRC),
-            "-o", str(tmp), str(_CSRC / "poseidon2.cu"),
-        ]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.mp2_poseidon2_permute_planar
+    built = build_library("mp2_poseidon2", _SOURCES,
+                          header=("poseidon2_tables.h", _tables_header()))
+    fn = built.lib.mp2_poseidon2_permute_planar
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return Built(path=so, seconds=seconds, log=log, lib=lib)
+    return built
 
 
 # ---------------------------------------------------------------------------

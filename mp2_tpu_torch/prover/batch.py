@@ -41,6 +41,26 @@ from mp2_tpu_torch.prover.prove import (
 )
 
 
+_SUM_ELEMS = 1 << 25  # elements of one product chunk in _weighted_sum
+_QUOTIENT_ELEMS = 1 << 19  # batch elements x coset points per quotient chunk
+
+
+def _weighted_sum(terms: torch.Tensor, weights: torch.Tensor, axis: int) -> torch.Tensor:
+    """sum_k terms_k * weights_k along `axis` (weights broadcast against the
+    terms).  The product runs in chunks of the axis holding about
+    _SUM_ELEMS elements, so a field multiply's temporaries stay a fraction
+    of `terms` at the wrap circuits' sizes; small tensors take one chunk.
+    Field sums of canonical values are exact in any order."""
+    size = terms.shape[axis]
+    step = max(1, _SUM_ELEMS * size // terms.numel())
+    acc = None
+    for k0 in range(0, size, step):
+        k = min(step, size - k0)
+        part = gl.sum_axis(gl.mul(terms.narrow(axis, k0, k), weights.narrow(axis, k0, k)), axis)
+        acc = part if acc is None else gl.add(acc, part)
+    return acc
+
+
 def _leaves_batched(lde_nat: torch.Tensor) -> torch.Tensor:
     """(B, C, big) natural order -> leaves (B, big, C) in bit-reversed order."""
     return fri_mod.bit_reverse(lde_nat).transpose(1, 2)
@@ -101,23 +121,46 @@ def _compute_zs_batched(data: CircuitData, wit, betas, gammas) -> torch.Tensor:
 def _quotient_batched(data: CircuitData, wire_lde, zs_lde, betas, gammas,
                       alphas, pi_hash) -> torch.Tensor:
     """Combined constraints / Z_H on the LDE coset: wire_lde (B, W, big),
-    zs_lde (B, zc, big), challenges (nc, B), pi_hash (B, 4) -> (B, nc, big)."""
+    zs_lde (B, zc, big), challenges (nc, B), pi_hash (B, 4) -> (B, nc, big).
+
+    Pointwise on the coset once Z(g x) is rolled into place, so the points
+    run in chunks of about _QUOTIENT_ELEMS batch elements x points: the eager
+    constraint evaluation holds many (B, points) temporaries at once (a
+    B=16 batch of 2^16-point LDEs peaked at 66 GB in one piece).  Small
+    batches take one chunk."""
     cfg = data.config
     rate = cfg.fri.rate_bits
+    npp = cfg.num_partial_products
+    B, _, big = wire_lde.shape
+    dev = data.device
+    tables = [gl.from_u64(t, dev) for t in _lde_tables(data.log_n, rate)]  # x, 1/Z_H, L0
+    z_cols = [c * (1 + npp) for c in range(cfg.num_challenges)]
+    z_next = torch.roll(zs_lde[:, z_cols], -(1 << rate), dims=-1)  # Z(g x), (B, nc, big)
+    step = max(1, min(big, _QUOTIENT_ELEMS // B))
+    parts = [
+        _quotient_points(data, wire_lde[..., p:p + step], zs_lde[..., p:p + step],
+                         z_next[..., p:p + step], *(t[p:p + step] for t in tables),
+                         data.fixed_lde[:, p:p + step], betas, gammas, alphas, pi_hash)
+        for p in range(0, big, step)
+    ]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def _quotient_points(data: CircuitData, wire_lde, zs_lde, z_next, x, zh_inv, l0,
+                     fl, betas, gammas, alphas, pi_hash) -> torch.Tensor:
+    """The quotient at m coset points: wire_lde (B, W, m), zs_lde (B, zc, m),
+    z_next (B, nc, m), x / 1/Z_H / L0 (m,), fixed columns fl (F, m)
+    -> (B, nc, m)."""
+    cfg = data.config
     W = cfg.num_wires
     T = data.num_gate_types
     nC = cfg.num_constants
     npp = cfg.num_partial_products
     n_chunks = -(-W // cfg.permutation_chunk_size)
-    B, _, big = wire_lde.shape
+    B, _, m = wire_lde.shape
     dev = data.device
-    x_t, zh_inv_t, l0_t = _lde_tables(data.log_n, rate)
-    x = gl.from_u64(x_t, dev)
-    zh_inv = gl.from_u64(zh_inv_t, dev)
-    l0 = gl.from_u64(l0_t, dev)
 
-    alg = TorchAlgebra((B, big), dev)
-    fl = data.fixed_lde
+    alg = TorchAlgebra((B, m), dev)
     sel = [fl[t][None] for t in range(T)]
     consts = [fl[T + j][None] for j in range(nC)]
     sigma_m = fl[T + nC : T + nC + W]
@@ -132,23 +175,23 @@ def _quotient_batched(data: CircuitData, wire_lde, zs_lde, betas, gammas,
         base = c * (1 + npp)
         z = zs_lde[:, base]
         partials = zs_lde[:, base + 1 : base + 1 + npp]
-        z_next = torch.roll(z, -(1 << rate), dims=-1)
         groups.append(gl.mul(l0, gl.sub(z, torch.ones_like(z)))[None])
         bk = gl.mul(k_vec[None, :, None], beta)  # (B, W, 1)
         num_all = gl.add(gl.add(wire_lde, gl.mul(bk, x)), gamma)
         den_all = gl.add(gl.add(wire_lde, gl.mul(sigma_m[None], beta)), gamma)
-        nums = _pairwise_prod(num_all.reshape(B, n_chunks, -1, big), 2)
-        dens = _pairwise_prod(den_all.reshape(B, n_chunks, -1, big), 2)
-        pps = torch.cat([z[:, None], partials, z_next[:, None]], dim=1)
+        nums = _pairwise_prod(num_all.reshape(B, n_chunks, -1, m), 2)
+        dens = _pairwise_prod(den_all.reshape(B, n_chunks, -1, m), 2)
+        pps = torch.cat([z[:, None], partials, z_next[:, c][:, None]], dim=1)
         diff = gl.sub(gl.mul(pps[:, 1:], dens), gl.mul(pps[:, :-1], nums))
-        groups.append(diff.transpose(0, 1))  # (n_chunks, B, big)
+        groups.append(diff.transpose(0, 1))  # (n_chunks, B, m)
 
-    all_terms = torch.cat(groups, dim=0)  # (K, B, big)
+    all_terms = torch.cat(groups, dim=0)  # (K, B, m)
+    del groups
     K = all_terms.shape[0]
     outs = []
     for c in range(cfg.num_challenges):
         apows = _powers_device(alphas[c], K)  # (K, B)
-        acc = gl.sum_axis(gl.mul(all_terms, apows[:, :, None]), axis=0)
+        acc = _weighted_sum(all_terms, apows[:, :, None], 0)
         outs.append(gl.mul(acc, zh_inv))
     return torch.stack(outs, dim=1)
 
@@ -196,8 +239,8 @@ def _combine_core(all_lde, z_lde, opens1: GF2, opens2: GF2, alpha: GF2,
 
     def batch_sum(lde, opens: GF2, k: int):
         ap = GF2(apows.c0[:k].T, apows.c1[:k].T)  # (B, k)
-        acc0 = gl.sum_axis(gl.mul(lde, ap.c0[:, :, None]), 1)
-        acc1 = gl.sum_axis(gl.mul(lde, ap.c1[:, :, None]), 1)
+        acc0 = _weighted_sum(lde, ap.c0[:, :, None], 1)
+        acc1 = _weighted_sum(lde, ap.c1[:, :, None], 1)
         o = ext2.sum_axis(ext2.mul(ap, opens), axis=1)  # (B,)
         return ext2.sub(GF2(acc0, acc1), GF2(o.c0[:, None], o.c1[:, None]))
 

@@ -1,10 +1,14 @@
-"""Number-theoretic transform over Goldilocks (radix-2, plain torch).
+"""Number-theoretic transform over Goldilocks.
 
-Port of `mp2_tpu/prover/ntt.py`.  Iterative DIT: one bit-reversal gather,
-then log2(n) stages of contiguous-half butterflies written as reshapes.
-From 2^15 points the four-step (Bailey) decomposition runs instead, as in
-the reference.  The fused NTT kernel of the TPU package (K2) is not ported
-yet; the tree-node slice only transforms 16 and 128 points.
+Port of `mp2_tpu/prover/ntt.py`.  Every transform of up to 2^14 points is
+one `ops/ntt_cuda.ntt_rows` call over all rows, flattened to (R, n): on the
+card that is one launch of K2 (the fused NTT kernel), on the CPU its plain
+radix-2 twin.  From 2^15 points the four-step (Bailey) decomposition of
+`mp2_tpu/ops/ntt_pallas.py::ntt_four_step_fused` runs instead: K2 over the
+columns with the middle twiddle in its epilogue, a torch transpose, K2 over
+the rows, and the transpose back.  The reference gates its kernel at 512
+points; on the card the gate is dropped, since an eager plain stage costs
+dozens of launches (a field multiply alone is ~30).
 """
 
 from __future__ import annotations
@@ -15,57 +19,15 @@ import numpy as np
 import torch
 
 from mp2_tpu_torch.field import goldilocks as gl
-from mp2_tpu_torch.field.goldilocks import P, POWER_OF_TWO_GENERATOR
-
-_FOUR_STEP_MIN_LOG = 15
-
-
-@lru_cache(maxsize=None)
-def _root_of_unity(log_n: int) -> int:
-    """Primitive 2^log_n-th root of unity (plonky2's tower from the 2^32
-    generator)."""
-    assert 0 <= log_n <= 32
-    g = POWER_OF_TWO_GENERATOR
-    for _ in range(32 - log_n):
-        g = g * g % P
-    return g
-
-
-@lru_cache(maxsize=None)
-def _bitrev_indices(log_n: int) -> np.ndarray:
-    n = 1 << log_n
-    idx = np.arange(n)
-    rev = np.zeros(n, dtype=np.int64)
-    for b in range(log_n):
-        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
-    return rev
-
-
-@lru_cache(maxsize=None)
-def _power_table(base: int, n: int) -> np.ndarray:
-    out = np.empty(n, dtype=np.uint64)
-    cur = 1
-    for i in range(n):
-        out[i] = cur
-        cur = cur * base % P
-    return out
-
-
-@lru_cache(maxsize=None)
-def _bitrev_t(log_n: int, device) -> torch.Tensor:
-    return torch.from_numpy(_bitrev_indices(log_n)).to(device)
-
-
-@lru_cache(maxsize=None)
-def _stage_twiddles(log_n: int, inverse: bool, device):
-    """For stage s (1-based): w_{2^s}^j for j < 2^(s-1), as device tensors."""
-    tables = []
-    for s in range(1, log_n + 1):
-        w = _root_of_unity(s)
-        if inverse:
-            w = pow(w, P - 2, P)
-        tables.append(gl.from_u64(_power_table(w, 1 << (s - 1)), device))
-    return tables
+from mp2_tpu_torch.field.goldilocks import P
+from mp2_tpu_torch.ops.ntt_cuda import (  # noqa: F401  (re-exported tables)
+    MAX_LOG_N,
+    _bitrev_indices,
+    _bitrev_t,
+    _power_table,
+    _root_of_unity,
+    ntt_rows,
+)
 
 
 @lru_cache(maxsize=None)
@@ -78,58 +40,51 @@ def ntt(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     n = x.shape[-1]
     log_n = n.bit_length() - 1
     assert 1 << log_n == n
-    if log_n >= _FOUR_STEP_MIN_LOG:
+    if n == 1:
+        return x
+    if log_n > MAX_LOG_N:
         return _ntt_four_step(x, inverse)
     return _ntt_small(x, inverse)
 
 
 def _ntt_small(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """One pass over all rows (n <= 2^14 on the card)."""
     n = x.shape[-1]
-    log_n = n.bit_length() - 1
-    if n == 1:
-        return x
-    batch = tuple(x.shape[:-1])
-    x = torch.index_select(x, -1, _bitrev_t(log_n, x.device))
-    tws = _stage_twiddles(log_n, inverse, x.device)
-    for s in range(1, log_n + 1):
-        half = 1 << (s - 1)
-        v = x.reshape(batch + (n // (2 * half), 2, half))
-        e = v[..., 0, :]
-        t = gl.mul(v[..., 1, :], tws[s - 1])
-        x = torch.cat([gl.add(e, t), gl.sub(e, t)], dim=-1).reshape(batch + (n,))
-    if inverse:
-        x = gl.mul_const(x, pow(n, P - 2, P))
-    return x
+    return ntt_rows(x.reshape(-1, n).contiguous(), inverse, scale=inverse).reshape(x.shape)
 
 
 @lru_cache(maxsize=None)
 def _four_step_twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
-    """w^(i*j) table of shape (n1, n2) for the middle twiddle pass."""
+    """w^(k1*j2) as an (n2, n1) table: row j2 is the middle twiddle of the
+    column transform that pass 1 computes for column j2."""
     log1 = log_n // 2
     n1, n2 = 1 << log1, 1 << (log_n - log1)
     w = _root_of_unity(log_n)
     if inverse:
         w = pow(w, P - 2, P)
-    out = np.empty((n1, n2), dtype=np.uint64)
-    for i in range(n1):
-        out[i] = _power_table(pow(w, i, P), n2)
+    out = np.empty((n2, n1), dtype=np.uint64)
+    for j2 in range(n2):
+        out[j2] = _power_table(pow(w, j2, P), n1)
     return gl.from_u64(out, device)
 
 
 def _ntt_four_step(x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """Bailey: view n = n1*n2 as (n1, n2) row-major;
-    1) transform the columns, 2) twiddle by w^(k1*j2), 3) transform the
-    rows, 4) read out transposed."""
+    """Bailey: view n = n1*n2 as (n1, n2) row-major, n1 = 2^floor(log n / 2);
+    y[k1 + n1*k2] = NTT_j2( w^(j2 k1) * NTT_j1(x[j1, j2])[k1] )[k2]:
+    1) transform the columns, with the middle twiddle, 2) transform the
+    rows, 3) read out transposed.  An inverse scales each pass by its own
+    length's inverse, n1^-1 * n2^-1 = n^-1."""
     n = x.shape[-1]
     log_n = n.bit_length() - 1
     log1 = log_n // 2
     n1, n2 = 1 << log1, 1 << (log_n - log1)
     batch = tuple(x.shape[:-1])
-    m = x.reshape((-1, n1, n2))
-    a = _ntt_small(m.transpose(1, 2), inverse)  # (B, n2, n1)
-    a = gl.mul(a, _four_step_twiddles(log_n, inverse, x.device).T)
-    c = _ntt_small(a.transpose(1, 2), inverse)  # (B, n1, n2)
-    return c.transpose(1, 2).reshape(batch + (n,))
+    cols = x.reshape(-1, n1, n2).transpose(1, 2).reshape(-1, n1)  # (B*n2, n1)
+    a = ntt_rows(cols, inverse, twiddle=_four_step_twiddles(log_n, inverse, x.device),
+                 scale=inverse)
+    rows = a.reshape(-1, n2, n1).transpose(1, 2).reshape(-1, n2)  # (B*n1, n2)
+    c = ntt_rows(rows, inverse, scale=inverse)
+    return c.reshape(-1, n1, n2).transpose(1, 2).reshape(batch + (n,))
 
 
 def intt(x: torch.Tensor) -> torch.Tensor:

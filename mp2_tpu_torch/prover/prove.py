@@ -1,11 +1,13 @@
 """TP2 circuit data and proof objects: what `prover/batch.prove_batch` and
 the host verifier share.
 
-Port of the parts of `mp2_tpu/prover/prove.py` that the batched prover
-imports: `CircuitData` (compile, fixed-column LDE and Merkle tree, witness
-generation), `Openings`, `Proof`, `_gate_terms`, `_lde_tables`,
-and `_powers_device`.  The serial `prove` is not ported yet; `_shape_key`
-keyed JAX's jit caches and has no use in eager torch.
+Port of `mp2_tpu/prover/prove.py`: `CircuitData` (compile, fixed-column
+LDE and Merkle tree, witness generation and `check_witness`), `Openings`,
+`Proof`, `_gate_terms`, `_lde_tables`, `_powers_device`, and the serial
+`prove`.  The reference shows its batched and serial proofs bit-identical
+(tests/test_recursion.py:331-397), so `prove` here is a batch of one
+through `prover/batch.prove_batch` rather than a second copy of the prover.
+`_shape_key` keyed JAX's jit caches and has no use in eager torch.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from mp2_tpu_torch.field.goldilocks import P
 from mp2_tpu_torch.hash import poseidon2_host as p2h
 from mp2_tpu_torch.prover import fri as fri_mod
 from mp2_tpu_torch.prover import ntt
+from mp2_tpu_torch.prover.algebra import HostExtAlgebra
 from mp2_tpu_torch.prover.config import CircuitConfig
 from mp2_tpu_torch.prover.merkle import MerkleTree
 
@@ -209,6 +212,23 @@ class CircuitData:
                 w[r, c] = v
         return w
 
+    def check_witness(self, w: np.ndarray, public_inputs: List[int]) -> None:
+        """Debug: evaluate every gate's constraints on the raw witness rows."""
+        alg = HostExtAlgebra
+        pi_hash = p2h.hash_no_pad(public_inputs)
+        extras = {"pi_hash": [(h, 0) for h in pi_hash]}
+        for i, row in enumerate(self.rows_meta):
+            wires = [(int(w[i, j]), 0) for j in range(self.config.num_wires)]
+            consts = [
+                (int(self.constants_values[i, j]), 0)
+                for j in range(self.config.num_constants)
+            ]
+            for k, c in enumerate(row.gate.constraints(alg, wires, consts, extras)):
+                if c != (0, 0):
+                    raise AssertionError(
+                        f"constraint {k} of gate {row.gate.name} fails at row {i}"
+                    )
+
 
 # ---------------------------------------------------------------------------
 # helpers
@@ -291,3 +311,15 @@ def _gate_terms(data: CircuitData, alg, sel, consts, wires, extras) -> List:
             terms.append(alg.mul(sel[t], c))
     return terms
 
+
+# ---------------------------------------------------------------------------
+# prover
+# ---------------------------------------------------------------------------
+
+
+def prove(data: CircuitData, witness: np.ndarray, public_inputs: List[int]) -> Proof:
+    """One proof: a batch of one through `prove_batch`, on `data.device`."""
+    from mp2_tpu_torch.prover.batch import prove_batch  # batch imports this module
+
+    return prove_batch(data, np.asarray(witness, dtype=np.uint64)[None],
+                       [list(public_inputs)])[0]

@@ -1,4 +1,4 @@
-"""K1 and the batched prover on a CUDA card.  These tests skip where there is
+"""K1, K2 and the batched prover on a CUDA card.  These tests skip where there is
 no card.  The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
@@ -13,7 +13,9 @@ import torch
 
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.hash import poseidon2_host as p2h
+from mp2_tpu_torch.ops import ntt_cuda as N
 from mp2_tpu_torch.ops import poseidon2_cuda as K
+from mp2_tpu_torch.prover import ntt
 from mp2_tpu_torch.prover.batch import prove_batch
 from mp2_tpu_torch.prover.config import test_config
 from mp2_tpu_torch.prover.serde import proof_sha256, proof_to_dict
@@ -49,6 +51,34 @@ def test_kernel_matches_plain_and_host(cuda):
         assert [int(v) for v in out[:, i]] == p2h.permute([int(v) for v in st[:, i]])
     with pytest.raises(ValueError):
         K.permute_planar(x[:, ::2])  # not contiguous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [1, 7, 11, 13, 14])
+def test_ntt_kernel_matches_plain(cuda, log_n):
+    """K2 against its plain version, bit for bit, with every flag."""
+    rng = np.random.default_rng(log_n)
+    n = 1 << log_n
+    x = gl.from_u64(rng.integers(0, gl.P, size=(8, n), dtype=np.uint64), cuda)
+    tw = gl.from_u64(rng.integers(0, gl.P, size=(2, n), dtype=np.uint64), cuda)
+    for inverse in (False, True):
+        for kw in ({}, {"scale": True}, {"bitrev_input": True},
+                   {"twiddle": tw, "scale": True, "bitrev_input": True}):
+            before = N.ntt_rows.launches
+            got = N.ntt_rows(x, inverse, **kw)
+            assert N.ntt_rows.launches == before + 1
+            assert torch.equal(got, N.ntt_rows_plain(x, inverse, **kw))
+    with pytest.raises(ValueError):
+        N.ntt_rows(x[:, ::2], False)  # not contiguous
+
+
+@pytest.mark.cuda
+def test_four_step_on_card_matches_cpu(cuda):
+    """The four-step NTT at 2^15 (two K2 passes) equals the CPU's."""
+    x = np.random.default_rng(15).integers(0, gl.P, size=(2, 1 << 15), dtype=np.uint64)
+    for inverse in (False, True):
+        got = ntt.ntt(gl.from_u64(x, cuda), inverse)
+        assert torch.equal(got.cpu(), ntt.ntt(gl.from_u64(x, "cpu"), inverse))
 
 
 @pytest.mark.cuda

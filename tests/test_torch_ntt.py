@@ -1,0 +1,180 @@
+"""K2's plain twin and the port's NTT against mp2_tpu on the CPU.
+
+`ops/ntt_cuda.ntt_rows_plain` is held against the reference's Pallas NTT
+kernels run in interpret mode (as tests/test_ntt_pallas.py runs them), the
+port's `prover/ntt` transforms at the four-step sizes against
+`mp2_tpu.prover.ntt`, and the kernel's flags against the reference's
+formulas.  Inputs come from numpy with a seed; every comparison is exact.
+The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py and
+chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mp2_tpu.field import goldilocks as jgl
+from mp2_tpu.prover import ntt as jntt
+from mp2_tpu_torch.field import goldilocks as gl
+from mp2_tpu_torch.ops import ntt_cuda as N
+from mp2_tpu_torch.prover import ntt
+
+P = gl.P
+EDGES = np.array([0, P - 1, 1 << 32, (1 << 32) - 1], dtype=np.uint64)
+
+
+def _rand(seed, shape):
+    x = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64)
+    k = min(4, shape[-1])
+    x[..., :k] = EDGES[:k]
+    return x
+
+
+def _plain(x, inverse, **kw):
+    return gl.to_u64(N.ntt_rows_plain(gl.from_u64(x, "cpu"), inverse, **kw))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", [9, 10])
+def test_plain_matches_pallas_ntt_full(log_n, inverse):
+    """ntt_full (K2, one fused pass, interpret mode) == ntt_rows_plain with
+    the n^-1 scale of an inverse transform."""
+    from mp2_tpu.ops.ntt_pallas import ntt_full
+
+    x = _rand(log_n, (3, 1 << log_n))
+    want = np.asarray(ntt_full(jnp.asarray(x), inverse))
+    np.testing.assert_array_equal(_plain(x, inverse, scale=inverse), want)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n, packed", [(10, "0"), (12, "1")])
+def test_four_step_matches_pallas_four_step_fused(log_n, packed, inverse, monkeypatch):
+    """ntt_four_step_fused (both passes, interpret mode) == the port's
+    four-step, which runs ntt_rows on the CPU: at 2^10 with the unpacked
+    stages (K2a; the interpreter wedges on the packed kernel at 32 lanes,
+    tests/test_ntt_pallas.py:54-65) and at 2^12 with the packed default."""
+    from mp2_tpu.ops.ntt_pallas import ntt_four_step_fused
+
+    monkeypatch.setenv("MP2_NTT_PACKED", packed)
+    x = _rand(7, (2, 1 << log_n))
+    want = np.asarray(ntt_four_step_fused(jnp.asarray(x), inverse))
+    got = gl.to_u64(ntt._ntt_four_step(gl.from_u64(x, "cpu"), inverse))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("log_n", [15, 16])
+def test_four_step_sizes_match_reference(log_n):
+    """The port's ntt/intt at 2^15 and 2^16 and its LDE onto 2^log_n points
+    (the wrap circuits' shapes), 2 rows, against mp2_tpu.prover.ntt."""
+    x = _rand(log_n, (2, 1 << log_n))
+    t = gl.from_u64(x, "cpu")
+    jx = jgl.from_u64(x)
+    if log_n == 15:  # at 2^16 the LDE below runs the forward transform
+        np.testing.assert_array_equal(gl.to_u64(ntt.ntt(t)), jgl.to_u64(jntt.ntt(jx)))
+    np.testing.assert_array_equal(gl.to_u64(ntt.intt(t)), jgl.to_u64(jntt.intt(jx)))
+    coeffs = x[:, : 1 << (log_n - 3)]
+    np.testing.assert_array_equal(
+        gl.to_u64(ntt.lde(gl.from_u64(coeffs, "cpu"), 3)),
+        jgl.to_u64(jntt.lde(jgl.from_u64(coeffs), 3)))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", [1, 4, 8, 11])
+def test_plain_matches_reference_ntt(log_n, inverse):
+    """No flags: the plain transform; with scale: the reference's intt."""
+    x = _rand(100 + log_n, (5, 1 << log_n))
+    jx = jgl.from_u64(x)
+    if inverse:
+        np.testing.assert_array_equal(_plain(x, True, scale=True), jgl.to_u64(jntt.intt(jx)))
+    else:
+        np.testing.assert_array_equal(_plain(x, False), jgl.to_u64(jntt.ntt(jx)))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", [1, 5, 10])
+def test_bitrev_input_flag(log_n, inverse):
+    """bitrev_input skips the load permutation: rows given in the order of
+    the reference's _bitrev_indices transform like the natural rows."""
+    x = _rand(200 + log_n, (3, 1 << log_n))
+    rev = jntt._bitrev_indices(log_n)
+    np.testing.assert_array_equal(_plain(x[:, rev], inverse, bitrev_input=True),
+                                  _plain(x, inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", [15, 16])
+def test_twiddle_flag_is_the_four_step_middle_twiddle(log_n, inverse):
+    """The twiddle epilogue multiplies row r by twiddle row r % T, and the
+    four-step's (n2, n1) table is the reference's _four_step_twiddles
+    transposed."""
+    log1 = log_n // 2
+    n1, n2 = 1 << log1, 1 << (log_n - log1)
+    ref = np.ascontiguousarray(jntt._four_step_twiddles(log_n, inverse).T)  # (n2, n1)
+    np.testing.assert_array_equal(
+        gl.to_u64(ntt._four_step_twiddles(log_n, inverse, "cpu")), ref)
+    x = _rand(300 + log_n, (2 * n2, n1))
+    got = _plain(x, inverse, twiddle=gl.from_u64(ref, "cpu"), scale=inverse)
+    cols = N.ntt_rows_plain(gl.from_u64(x, "cpu"), inverse, scale=inverse)
+    want = gl.to_u64(gl.mul(cols, gl.from_u64(np.concatenate([ref, ref]), "cpu")))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("log_n", [2, 6, 12])
+def test_scale_flag(log_n):
+    x = _rand(400 + log_n, (2, 1 << log_n))
+    n_inv = pow(1 << log_n, P - 2, P)
+    want = [[int(v) * n_inv % P for v in row] for row in _plain(x, True)]
+    np.testing.assert_array_equal(_plain(x, True, scale=True), np.array(want, dtype=np.uint64))
+
+
+def test_all_flags_together():
+    x = _rand(500, (8, 64))
+    tw = _rand(501, (4, 64))
+    rev = jntt._bitrev_indices(6)
+    got = _plain(x[:, rev], True, twiddle=gl.from_u64(tw, "cpu"), scale=True,
+                 bitrev_input=True)
+    base = jgl.to_u64(jntt.intt(jgl.from_u64(x)))
+    want = jgl.to_u64(jgl.mul(jgl.from_u64(base), jgl.from_u64(np.concatenate([tw, tw]))))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_wrapper_takes_the_plain_path_on_the_cpu():
+    x = gl.from_u64(_rand(600, (4, 32)), "cpu")
+    before = N.ntt_rows.launches
+    out = N.ntt_rows(x, False)
+    assert N.ntt_rows.launches == before
+    assert torch.equal(out, N.ntt_rows_plain(x, False))
+
+
+@pytest.mark.parametrize("shape, kw", [
+    ((4, 24), {}),  # not a power of two
+    ((2, 1 << 15), {}),  # above one pass
+    ((4, 32), {"twiddle": (3, 32)}),  # does not tile the rows
+    ((4, 32), {"twiddle": (2, 16)}),  # wrong row length
+])
+def test_wrapper_refuses_shapes_the_kernel_does_not_take(shape, kw):
+    x = torch.zeros(shape, dtype=torch.int64)
+    if "twiddle" in kw:
+        kw = {"twiddle": torch.zeros(kw["twiddle"], dtype=torch.int64)}
+    with pytest.raises(ValueError):
+        N.ntt_rows(x, False, **kw)
+
+
+def test_wrapper_refuses_devices_without_the_kernel():
+    with pytest.raises(ValueError, match="no NTT kernel"):
+        N.ntt_rows(torch.zeros((2, 8), dtype=torch.int64, device="meta"), False)
+    with pytest.raises(ValueError):
+        N.ntt_rows(torch.zeros((2, 8), dtype=torch.int32), False)
+
+
+def test_stage_table_layout():
+    """Stage s occupies offset 2^(s-1) - 1: w_{2^s}^j for j < 2^(s-1)."""
+    log_n = 5
+    table = gl.to_u64(N._stage_table(log_n, False, "cpu"))
+    assert len(table) == (1 << log_n) - 1
+    for s in range(1, log_n + 1):
+        h = 1 << (s - 1)
+        w = jntt._root_of_unity(s)
+        assert [int(v) for v in table[h - 1 : 2 * h - 1]] == [pow(w, j, P) for j in range(h)]

@@ -185,7 +185,7 @@ def test_prove_batch_rejects_public_inputs_of_another_length(tree_node):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (and chip_smoke.py) leaves jax out
-    of sys.modules."""
+    of sys.modules; the walk reaches the recursion slice's modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mp2_tpu_torch\n"
@@ -194,6 +194,12 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'mp2_tpu.')))\n"
         "assert not bad, bad\n"
+        "want = ['ops.ntt_cuda', 'ops._nvcc', 'circuit.gadgets.ext2',\n"
+        "        'circuit.gadgets.transcript', 'recursion.verifier_gadget',\n"
+        "        'recursion.framework', 'recursion.wrap', 'recursion.runtime',\n"
+        "        'utils.trace']\n"
+        "missing = [m for m in want if 'mp2_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
