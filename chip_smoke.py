@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds K1 (the Poseidon2 CUDA kernel) and K2 (the fused-NTT CUDA kernel)
-from the sources in this checkout, both `nvcc` runs started together, and
-holds each bit for bit against its plain PyTorch version at the shapes the
-prover gives it (K1 also against the host model; K2 at every size from 2^1
-to 2^14 with every flag, and the four-step transforms at 2^15 to 2^17).
-Then it drives two paths:
+Builds K1 (the Poseidon2 CUDA kernel), K2 (the fused-NTT CUDA kernel) and
+K2c (the transpose-fused four-step NTT CUDA kernel) from the sources in this
+checkout, the three `nvcc` runs started together, and holds each bit for bit
+against its plain PyTorch version at the shapes the prover gives it (K1 also
+against the host model; K2 at every size from 2^1 to 2^14 with every flag;
+K2c from 2^6 to 2^10 and from 2^15 to 2^20, at B=1 and 3, and at the LDE
+widths, where the K2 + torch-transpose four-step it replaced is timed
+beside it).  Then it drives three paths:
 
   tree-node proofs (the map phase): batches of tree-node proofs with
   `prover/batch.prove_batch` at the light (`test_config`, B=32) and the
@@ -21,16 +23,36 @@ Then it drives two paths:
   and a 2-child aggregation member at `test_config()` (set digest, standard
   n, member digests and the proofs of 2 leaves + 1 aggregation checked
   against `mp2_tpu_torch/testdata/recursion_golden.json`, which the JAX
-  package wrote), then a 16-leaf binary reduce tree proved level by level,
-  its root verified, printed as `fixed_vk_tree_proofs_per_s`; and the same
-  framework at `CircuitConfig()` (set digest and standard n checked, 2
-  leaves + 1 aggregation proved and the root verified).
+  package wrote), then a TREE_LEAVES-leaf binary reduce tree proved level
+  by level, its root verified, printed as `fixed_vk_tree_proofs_per_s`;
+  and the same framework at `CircuitConfig()` (set digest and standard n
+  checked, 2 leaves + 1 aggregation proved and the root verified);
+
+  the verifiable DB's row update: `vdb/circuits.VerifiableDbCircuits` (the
+  cells and rows sets) at `test_config()` and `CircuitConfig()`, set and
+  member digests, standard n and wrap chains checked against
+  `mp2_tpu_torch/testdata/vdb_golden.json`; the 2-cell -> `rows_leaf`
+  chain proved and its envelopes checked against the JAX proofs; then one
+  block that inserts VDB_ROWS rows of VDB_COLUMNS cells into an empty rows
+  tree: every cells tree level by level across rows, then the rows tree's
+  update plan through `parallel/scheduler.MapReduceScheduler`, each ready
+  group of same-circuit nodes in one batched call; the root verified and
+  its public inputs held against the host model, printed as
+  `vdb_row_update_proofs_per_s`; and the sets and the chain at
+  `CircuitConfig()`, verified.
+
+The timed phases (kernel times, tree-node batches, the reduce tree, the row
+update) run alone on the card.  The production vdb sets, whose set-up is
+host-bound Python, run in a second process of this script (`--vdb-production`)
+beside the untimed recursion production and light vdb set-up; the script
+waits for it, prints its output and fails with it.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched.  Any
-mismatch or exception exits non-zero.  The second-to-last line is the
-kernel record as JSON, the last line `{"ok": true, "device": {...}}`.
-Needs one CUDA card; imports no JAX.
+mismatch or exception exits non-zero.  The line before the kernel record
+names the card and its power limit; the second-to-last line is the kernel
+record as JSON, the last line `{"ok": true, "device": {...}}`.  Needs one
+CUDA card; imports no JAX.
 """
 
 import json
@@ -52,7 +74,9 @@ from mp2_tpu_torch.hash import poseidon2 as p2
 from mp2_tpu_torch.hash import poseidon2_host as p2h
 from mp2_tpu_torch.ops import _nvcc
 from mp2_tpu_torch.ops import ntt_cuda as N
+from mp2_tpu_torch.ops import ntt_t_cuda as T
 from mp2_tpu_torch.ops import poseidon2_cuda as K
+from mp2_tpu_torch.parallel.scheduler import MapReduceScheduler
 from mp2_tpu_torch.prover import ntt
 from mp2_tpu_torch.prover.batch import prove_batch
 from mp2_tpu_torch.prover.config import CircuitConfig, test_config
@@ -61,13 +85,16 @@ from mp2_tpu_torch.prover.verify import verify
 from mp2_tpu_torch.recursion import runtime
 from mp2_tpu_torch.recursion.runtime import RecursionFramework
 from mp2_tpu_torch.recursion.tp2_backend import _build_tree_node, tree_node_batch
+from mp2_tpu_torch.ryhope.updatetree import UpdateTree
 from mp2_tpu_torch.utils import trace
+from mp2_tpu_torch.vdb import circuits as V
+from mp2_tpu_torch.vdb.trees import Cell, RowPayload, build_cells_tree, new_row_tree
 
 TESTDATA = os.path.join("mp2_tpu_torch", "testdata")
 LIGHT_BATCH = 32
 PROD_BATCH = 8
 TIMED_BATCHES = 10
-TREE_LEAVES = 16
+TREE_LEAVES = 8  # BASELINE config 3 says 16; cut to keep the script in its time limit
 WIRES = 136  # columns of every circuit here (CircuitConfig.num_wires)
 
 # The least time the card could take (bound_ms): H100 SXM, NVIDIA's data
@@ -126,18 +153,22 @@ def _rand_rows(rng, shape, dev):
     return gl.from_u64(x, dev)
 
 
+KERNELS = {"K1": K.permute_planar, "K2": N.ntt_rows, "K2c": T.ntt_four_step_t}
+
+
 def _reset_counts():
-    K.permute_planar.launches = 0
-    N.ntt_rows.launches = 0
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
 
 
-def _read_counts(path, launches):
-    """Record the kernels' launch counts of `path`; fail on a zero."""
-    got = {"K1": K.permute_planar.launches, "K2": N.ntt_rows.launches}
+def _read_counts(path, launches, kernels=tuple(KERNELS)):
+    """Record the kernels' launch counts of `path`; fail if one of the
+    `kernels` that the path runs was not launched."""
+    got = {name: wrapper.launches for name, wrapper in KERNELS.items()}
     launches[path] = got
-    print(f"{path}: K1 launches {got['K1']}, K2 launches {got['K2']}")
-    for name, count in got.items():
-        if count == 0:
+    print(f"{path}: " + ", ".join(f"{k} launches {v}" for k, v in got.items()))
+    for name in kernels:
+        if got[name] == 0:
             _fail(f"{path} did not go through {name}")
     return got
 
@@ -149,8 +180,9 @@ def phase_toolchain(card):
     nvcc = subprocess.run([_nvcc.nvcc(), "--version"], capture_output=True, text=True)
     print("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:  # one nvcc per kernel, both at once
-        builds = {name: ex.submit(mod.build) for name, mod in (("K1", K), ("K2", N))}
+    mods = (("K1", K), ("K2", N), ("K2c", T))
+    with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per kernel, all at once
+        builds = {name: ex.submit(mod.build) for name, mod in mods}
         builds = {name: f.result() for name, f in builds.items()}
     print(f"kernel builds: {time.perf_counter() - t0:.3f} s wall together")
     for name, built in builds.items():
@@ -218,8 +250,7 @@ def _k2_work(rows, n, twiddle_rows, scale):
 
 def phase_k2(card):
     """K2 against its plain version, bit for bit, at every log n from 1 to
-    14 with every flag; the four-step transforms at 2^15..2^17 against the
-    plain four-step; times at the prover's shapes."""
+    14 with every flag; times at the prover's shapes."""
     rng = np.random.default_rng(2)
     dev = torch.device("cuda")
     err, checks = 0, 0
@@ -248,62 +279,111 @@ def phase_k2(card):
           f"none/scale/bitrev_input/twiddle/all; max_abs_err {err} "
           f"(tolerance 0: bit-exact)")
 
-    for log_n in (15, 16, 17):
-        x = _rand_rows(rng, (3, 1 << log_n), dev)
-        for inverse in (False, True):
-            got = ntt.ntt(x, inverse)
-            before = N.ntt_rows.launches
-            ntt.ntt_rows = N.ntt_rows_plain  # the plain four-step on the card
-            try:
-                want = ntt.ntt(x, inverse)
-            finally:
-                ntt.ntt_rows = N.ntt_rows
-            if N.ntt_rows.launches != before:
-                _fail("the plain four-step launched K2")
-            host = ntt.ntt(x[:1].cpu(), inverse)
-            err = max(err, _max_abs_err(got, want))
-            if not (torch.equal(got, want) and torch.equal(got[:1].cpu(), host)):
-                _fail(f"the four-step NTT at 2^{log_n} (inverse={inverse}) "
-                      f"disagrees with the plain four-step")
-        back = ntt.intt(ntt.ntt(x))
-        if not torch.equal(back, x):
-            _fail(f"intt(ntt(x)) != x at 2^{log_n}")
-    print("four-step NTT at 2^15, 2^16, 2^17 (K2 passes + transposes) equal to "
-          "the plain four-step on the card and on the CPU, both directions; "
-          "intt(ntt(x)) == x")
-
     # the prover's shapes: wire iNTT of a B=16 batch of 2^13-row wraps and a
-    # B=8 batch of 2^14-row aggregations; both passes of their LDEs
-    shapes = []
-    for batch, log_n in ((16, 13), (8, 14)):
-        shapes.append((f"iNTT ({batch}*{WIRES}, 2^{log_n})", batch * WIRES,
-                       log_n, 0, True))
-    for batch, log_n in ((16, 16), (8, 17)):
-        log1 = log_n // 2
-        log2 = log_n - log1
-        shapes.append((f"LDE 2^{log_n} pass 1 ({batch}*{WIRES}*2^{log2}, 2^{log1})",
-                       batch * WIRES << log2, log1, 1 << log2, False))
-        shapes.append((f"LDE 2^{log_n} pass 2 ({batch}*{WIRES}*2^{log1}, 2^{log2})",
-                       batch * WIRES << log1, log2, 0, False))
+    # B=8 batch of 2^14-row aggregations; the bitrev_input flag alone (K2d)
+    shapes = [(f"iNTT ({batch}*{WIRES}, 2^{log_n})", batch * WIRES, log_n,
+               {"scale": True}, True) for batch, log_n in ((16, 13), (8, 14))]
+    shapes.append((f"bitrev_input (16*{WIRES}, 2^13)", 16 * WIRES, 13,
+                   {"bitrev_input": True}, False))
     timings = {}
-    for name, rows, log_n, tw_rows, inverse in shapes:
+    for name, rows, log_n, kw, inverse in shapes:
         n = 1 << log_n
         x = _rand_rows(rng, (rows, n), dev)
-        kw = {"scale": inverse}
-        if tw_rows:
-            kw["twiddle"] = _rand_rows(rng, (tw_rows, n), dev)
         got = N.ntt_rows(x, inverse, **kw)
         if not torch.equal(got, N.ntt_rows_plain(x, inverse, **kw)):
             _fail(f"K2 disagrees with its plain version at {name}")
         del got
         k_ms = _time_ms(lambda: N.ntt_rows(x, inverse, **kw), 20)
         p_ms = _time_ms(lambda: N.ntt_rows_plain(x, inverse, **kw), 2)
-        bound_ms, bound_by = _bound(*_k2_work(rows, n, tw_rows, inverse))
+        bound_ms, bound_by = _bound(*_k2_work(rows, n, 0, kw.get("scale", False)))
         timings[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by}
         print(f"K2 at {name}: kernel {k_ms:.4f} ms ({rows * n / k_ms / 1e6:.3f}G "
               f"points/s), plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), identical; {card}")
+        del x
+        torch.cuda.empty_cache()
+    return err, timings
+
+
+def _four_step_k2(x, inverse):
+    """The four-step as the port ran it before K2c: K2's passes with torch
+    transposes (the plain four-step's code with the kernel passes), the
+    yardstick K2c replaced."""
+    T.ntt_rows_plain = N.ntt_rows
+    try:
+        return T.ntt_four_step_plain(x, inverse)
+    finally:
+        T.ntt_rows_plain = N.ntt_rows_plain
+
+
+def _k2c_work(rows, n, inverse):
+    """(bytes, 64-bit products) of one ntt_four_step_t call, as the function
+    needs them: every input read once and every output written once (the
+    kernel's two passes move them twice), the middle-twiddle table and the
+    stage tables; log n / 2 products per element, one for the twiddle, one
+    for the scale of an inverse."""
+    log1, log2 = T.split(n.bit_length() - 1)
+    nbytes = 16 * rows * n + 8 * (n + (1 << log1) + (1 << log2))
+    muls = rows * (n // 2) * (n.bit_length() - 1) + rows * n * (1 + inverse)
+    return nbytes, muls
+
+
+def phase_k2c(card):
+    """K2c against its plain version, bit for bit: at every log n from 6 to
+    10 (the sizes at which the CPU tests hold the plain version against the
+    JAX kernel) and from 15 to 20, both directions, at B=1 and B=3, and at
+    the slice's widths; a row also against the CPU.  Times at the LDE
+    shapes, beside the plain four-step and the K2 + transpose composition."""
+    rng = np.random.default_rng(3)
+    dev = torch.device("cuda")
+    err, checks = 0, 0
+    for log_n in list(range(T.MIN_LOG_N, 11)) + list(range(15, T.MAX_LOG_N + 1)):
+        for rows in (1, 3):
+            x = _rand_rows(rng, (rows, 1 << log_n), dev)
+            for inverse in (False, True):
+                got = T.ntt_four_step_t(x, inverse)
+                want = T.ntt_four_step_plain(x, inverse)
+                err = max(err, _max_abs_err(got, want))
+                checks += 1
+                if not torch.equal(got, want):
+                    _fail(f"K2c disagrees with its plain version at n=2^{log_n}, "
+                          f"B={rows}, inverse={inverse}")
+                if rows == 1 and not torch.equal(
+                        got.cpu(), T.ntt_four_step_plain(x.cpu(), inverse)):
+                    _fail(f"K2c at n=2^{log_n} disagrees with the CPU")
+        if log_n >= 15 and not torch.equal(ntt.intt(ntt.ntt(x)), x):
+            _fail(f"intt(ntt(x)) != x at 2^{log_n}")
+    print(f"K2c vs plain: {checks} cases, log n 6..10 and 15..20, B=1 and 3, both "
+          f"directions, B=1 also vs the CPU; max_abs_err {err} (tolerance 0: "
+          f"bit-exact); intt(ntt(x)) == x from 2^15")
+
+    # the slice's LDE shapes: B=16 batches of 2^13-row wraps (2^16 points),
+    # B=8 aggregation members of 2^14 rows (2^17), a rows member of 2^15
+    # rows (2^18); the wire iNTT of a 2^15-row member
+    shapes = [(f"LDE ({batch}*{WIRES}, 2^{log_n})", batch * WIRES, log_n, False)
+              for batch, log_n in ((16, 16), (8, 17), (1, 18))]
+    shapes.append((f"iNTT (2*{WIRES}, 2^15)", 2 * WIRES, 15, True))
+    timings = {}
+    for name, rows, log_n, inverse in shapes:
+        n = 1 << log_n
+        x = _rand_rows(rng, (rows, n), dev)
+        got = T.ntt_four_step_t(x, inverse)
+        err = max(err, _max_abs_err(got, T.ntt_four_step_plain(x, inverse)))
+        if not torch.equal(got, T.ntt_four_step_plain(x, inverse)) or \
+                not torch.equal(got, _four_step_k2(x, inverse)):
+            _fail(f"K2c disagrees with its plain version at {name}")
+        del got
+        k_ms = _time_ms(lambda: T.ntt_four_step_t(x, inverse), 20)
+        old_ms = _time_ms(lambda: _four_step_k2(x, inverse), 20)
+        p_ms = _time_ms(lambda: T.ntt_four_step_plain(x, inverse), 2)
+        bound_ms, bound_by = _bound(*_k2c_work(rows, n, inverse))
+        timings[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "k2_transpose_ms": old_ms}
+        print(f"K2c at {name}: kernel {k_ms:.4f} ms ({rows * n / k_ms / 1e6:.3f}G "
+              f"points/s), K2 + torch transposes {old_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), identical; "
+              f"{card}")
         del x
         torch.cuda.empty_cache()
     return err, timings
@@ -318,7 +398,7 @@ def _prove_and_verify(name, data, inputs, batch, launches):
     _reset_counts()
     proofs = prove_batch(data, wits, pis)
     torch.cuda.synchronize()
-    _read_counts(name, launches)
+    _read_counts(name, launches, ("K1", "K2"))
     ok = [verify(data, p) for p in proofs]
     print(f"{name}: B={batch}, warm-up {warm:.3f} s; verified {sum(ok)}/{batch}")
     if not all(ok):
@@ -438,7 +518,7 @@ def _framework(name, cfg, dev, golden):
 
 class _StageLog:
     """Counts every prove_batch of the recursion runtime: circuit n, B, wall,
-    K1 and K2 launches (a measurement hook of this script only)."""
+    K1, K2 and K2c launches (a measurement hook of this script only)."""
 
     def __init__(self):
         self.stages = []
@@ -446,14 +526,14 @@ class _StageLog:
 
     def __enter__(self):
         def counted(data, wits, pis):
-            k = (K.permute_planar.launches, N.ntt_rows.launches)
+            k = {name: w.launches for name, w in KERNELS.items()}
             t0 = time.perf_counter()
             out = self._orig(data, wits, pis)
             torch.cuda.synchronize()
             self.stages.append({"n": data.n, "B": len(pis),
                                 "s": time.perf_counter() - t0,
-                                "K1": K.permute_planar.launches - k[0],
-                                "K2": N.ntt_rows.launches - k[1]})
+                                **{name: w.launches - k[name]
+                                   for name, w in KERNELS.items()}})
             return out
 
         runtime.prove_batch = counted
@@ -490,7 +570,7 @@ def phase_recursion_light(card, dev, golden, launches):
           f"(first use of each shape); envelope proofs equal to the JAX golden "
           f"digests ({', '.join(d[:12] for d in got + [got_agg])}); verified")
 
-    # BASELINE config 3: a 16-leaf binary reduce tree, batched per level
+    # a TREE_LEAVES-leaf binary reduce tree (BASELINE config 3), batched per level
     values = list(range(TREE_LEAVES))
     torch.cuda.reset_peak_memory_stats()
     trace.reset()
@@ -532,7 +612,7 @@ def phase_recursion_light(card, dev, golden, launches):
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for st in log.stages:
         print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
-              f"K1 {st['K1']} launches, K2 {st['K2']} launches")
+              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
     return counts, n_proofs / wall
 
 
@@ -553,7 +633,267 @@ def phase_recursion_production(card, dev, golden, launches):
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {card}")
     for st in log.stages:
         print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
-              f"K1 {st['K1']} launches, K2 {st['K2']} launches")
+              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
+
+
+VDB_ROWS = 8  # rows inserted by one block
+VDB_COLUMNS = 3  # value columns of the table (cells per row)
+SECONDARY_ID = 10  # column identifiers of the table
+COLUMN_IDS = (11, 12, 13)
+
+
+def _vdb_sets(name, vdb, golden):
+    """Check both sets of `vdb` against the golden record of the JAX package."""
+    for set_name in ("cells", "rows"):
+        fw, g = getattr(vdb, set_name), golden[set_name]
+        chains = {m: [fw.members[m].data.n] + [wc.data.n for wc in
+                                               fw._wrap_chain_for(fw.members[m].data)]
+                  for m in fw.member_order}
+        print(f"{name} {set_name} set: standard n={fw.standard.n}, wrap chains {chains}")
+        if list(fw.set_digest) != g["set_digest"] or fw.standard.n != g["standard_n"]:
+            _fail(f"{name} {set_name}: set digest or standard n differs from the JAX package's")
+        if chains != g["wrap_chain_n"]:
+            _fail(f"{name} {set_name}: wrap chains differ from the JAX package's")
+        for m in fw.member_order:
+            if list(fw.members[m].digest) != g["member_digests"][m]:
+                _fail(f"{name} {set_name}: member {m}'s digest differs from the JAX package's")
+    print(f"{name}: cells and rows set digests ({vdb.cells.set_digest[0]:#x}..., "
+          f"{vdb.rows.set_digest[0]:#x}...), standard n, member digests and wrap "
+          f"chains equal to the JAX package's")
+
+
+def _row_chain(vdb, cells_values, secondary, rud, key):
+    """A cells tree proved by prove_cells_tree, then rows_leaf over it (the
+    serial path); returns every envelope in proving order and the rows leaf's
+    public inputs."""
+    proved = []
+    prove_member = vdb.cells._prove_member
+
+    def recording(m, inputs, user_pis):
+        env = prove_member(m, inputs, user_pis)
+        proved.append(env)
+        return env
+
+    vdb.cells._prove_member = recording  # a recording hook of this script only
+    try:
+        cells = build_cells_tree([Cell(i, v) for i, v in cells_values])
+        cells_env = vdb.prove_cells_tree(cells)
+    finally:
+        vdb.cells._prove_member = prove_member
+    db = new_row_tree()
+    db.in_transaction(lambda t: t.store(key, RowPayload(
+        secondary=Cell(*secondary), row_unique_data=rud, cells=cells)))
+    payload = db.payload(key)
+    pis = V.rows_pi_values(payload)
+    row_env = vdb.rows.prove_aggregation(
+        "rows_leaf", [], (payload.secondary, rud), pis, foreign_children=[cells_env])
+    return proved + [row_env], pis
+
+
+def _vdb_table(seed):
+    """The block's rows: U256 secondary index values and cell values from
+    numpy, 4 random row-unique-data fields, keys (secondary value, 0)."""
+    rng = np.random.default_rng(seed)
+
+    def u256():
+        return int.from_bytes(rng.bytes(32), "big")
+
+    rows = {}
+    for _ in range(VDB_ROWS):
+        sec = u256()
+        rud = tuple(int(v) for v in rng.integers(0, gl.P, size=4, dtype=np.uint64))
+        cells = build_cells_tree([Cell(i, u256()) for i in COLUMN_IDS[:VDB_COLUMNS]])
+        rows[(sec, 0)] = RowPayload(secondary=Cell(SECONDARY_ID, sec),
+                                    row_unique_data=rud, cells=cells)
+    return rows
+
+
+def _cells_forest_plan(trees):
+    """One workplan over the cells trees of many rows (keys (row key, node)):
+    every tree's leaves are ready first, so each level of all trees is one
+    batched call per member."""
+    children, parent = {}, {}
+    for rk, res in trees.items():
+        parent[(rk, res.tree.root_inner())] = None
+        for k in res.nodes:
+            kids = [(rk, c) for c in res.tree.children_inner(k) if c is not None]
+            children[(rk, k)] = kids
+            parent.update((c, (rk, k)) for c in kids)
+    return UpdateTree(root=None, children_map=children, parent_map=parent).into_workplan()
+
+
+def _prove_row_update(vdb, db, plan):
+    """The row-update path: every changed row's cells tree, level by level
+    across rows, then the rows tree's update plan bottom-up, each ready
+    group of same-circuit nodes in one batched call (MapReduceScheduler
+    over prove_leaves_batch / prove_aggregations_batch)."""
+    keys = sorted(plan.keys(), key=repr)
+    trees = {rk: db.payload(rk).cells for rk in keys}
+    envs = {}
+
+    def cells_kind(key):
+        rk, k = key
+        node, tree = trees[rk].nodes[k], trees[rk].tree
+        l, r = tree.children_inner(k)
+        kids = [(rk, c) for c in (l, r) if c is not None]
+        name = ("cells_leaf", "cells_partial", "cells_full")[len(kids)]
+        pis = V.cells_pi_values(node.hash, node.split, node.individual_cnt,
+                                node.multiplier_cnt)
+        return name, (node.cell, kids, pis)
+
+    def prove_cells(name, items):
+        fw = vdb.cells
+        args = [(cell,) for _, (cell, _, _) in items]
+        pis = [p for _, (_, _, p) in items]
+        if name == "cells_leaf":
+            out = fw.prove_leaves_batch(name, args, pis)
+        else:
+            out = fw.prove_aggregations_batch(
+                name, [[envs[c] for c in kids] for _, (_, kids, _) in items], args, pis)
+        envs.update((key, env) for (key, _), env in zip(items, out))
+        return out
+
+    cells_envs, cells_stats = MapReduceScheduler(prove_cells).run(
+        _cells_forest_plan(trees), cells_kind)
+    roots = {rk: cells_envs[(rk, t.tree.root_inner())] for rk, t in trees.items()}
+
+    def rows_kind(key):
+        l, r = db.tree.children(key)
+        payload = db.payload(key)
+        kids = [c for c in (l, r) if c is not None]
+        args = (payload.secondary, payload.row_unique_data)
+        if len(kids) == 1:
+            args += (l is not None,)
+        name = ("rows_leaf", "rows_partial", "rows_full")[len(kids)]
+        return name, (kids, args, V.rows_pi_values(payload), roots[key])
+
+    def prove_rows(name, items):
+        out = vdb.rows.prove_aggregations_batch(
+            name, [[envs[c] for c in kids] for _, (kids, _, _, _) in items],
+            [a for _, (_, a, _, _) in items], [p for _, (_, _, p, _) in items],
+            foreign_children_list=[[cells] for _, (_, _, _, cells) in items])
+        envs.update((key, env) for (key, _), env in zip(items, out))
+        return out
+
+    rows_envs, rows_stats = MapReduceScheduler(prove_rows).run(plan.into_workplan(), rows_kind)
+    return cells_envs, rows_envs, cells_stats, rows_stats
+
+
+def phase_vdb_light(card, dev, golden):
+    """The cells and rows sets at test_config() against the golden digests
+    and the golden 2-cell -> rows_leaf chain; returns the sets."""
+    t0 = time.perf_counter()
+    vdb = V.VerifiableDbCircuits(test_config(), device=dev)
+    print(f"vdb light (test_config): both sets built and finalized in "
+          f"{time.perf_counter() - t0:.3f} s on the host and the card")
+    _vdb_sets("vdb light", vdb, golden["light"])
+
+    g = golden["chain"]
+    t0 = time.perf_counter()
+    envs, pis = _row_chain(vdb, g["cells"], g["secondary"], tuple(g["row_unique_data"]),
+                           tuple(g["row_key"]))
+    torch.cuda.synchronize()
+    got = [proof_sha256(proof_to_dict(e.proof)) for e in envs]
+    if [e.member for e in envs] != g["members"] or pis != g["rows_leaf_public_inputs"]:
+        _fail(f"vdb chain: members {[e.member for e in envs]} or rows_leaf PIs differ")
+    if got != g["proof_sha256"]:
+        _fail(f"vdb chain: envelope proofs differ from the JAX golden digests: {got}")
+    if not (vdb.cells.verify(envs[-2]) and vdb.rows.verify(envs[-1])):
+        _fail("vdb chain: fw.verify rejected the cells root or the rows leaf")
+    print(f"vdb chain: {' -> '.join(g['members'])} in {time.perf_counter() - t0:.3f} s "
+          f"(serial prove, first use of each shape); envelope proofs equal to the JAX "
+          f"golden digests ({', '.join(d[:12] for d in got)}); verified")
+    return vdb
+
+
+def phase_vdb_update(card, vdb, launches):
+    """One block inserts VDB_ROWS rows into an empty rows tree; the update is
+    proved, timed and its root held against the host model."""
+    db = new_row_tree()
+    rows = _vdb_table(0)
+    plan = db.in_transaction(lambda t: [t.store(k, v) for k, v in rows.items()])
+    torch.cuda.reset_peak_memory_stats()
+    trace.reset()
+    os.environ["MP2_TRACE"] = "1"  # the runtime's spans, one stderr line each
+    _reset_counts()
+    with _StageLog() as log:
+        t0 = time.perf_counter()
+        cells_envs, rows_envs, cells_stats, rows_stats = _prove_row_update(vdb, db, plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del os.environ["MP2_TRACE"]
+    counts = _read_counts(f"vdb row update ({VDB_ROWS} rows x {VDB_COLUMNS} cells)",
+                          launches)
+    n_proofs = len(cells_envs) + len(rows_envs)
+    root = rows_envs[db.root()]
+    if not vdb.rows.verify(root):
+        _fail("vdb: fw.verify rejected the rows root")
+    want = V.rows_pi_values(db.payload(db.root())) + list(vdb.rows.set_digest)
+    if root.public_inputs != want:
+        _fail("vdb: the rows root's public inputs differ from the host model's")
+    spans = trace.report()
+    wit_s = spans.get("witness_batch", (0, 0.0))[1]
+    prove_s = sum(st["s"] for st in log.stages)
+    print(f"vdb row update: {n_proofs} member proofs ({len(cells_envs)} cells, "
+          f"{len(rows_envs)} rows), each wrapped, in {wall:.3f} s; rows root verified, "
+          f"PIs = host model's root payload + set digest")
+    print(f"vdb_row_update_proofs_per_s {n_proofs / wall:.4f} ({n_proofs} member "
+          f"proofs / {wall:.3f} s wall, wraps included); {card}")
+    print(f"vdb row update time: prove_batch {prove_s:.3f} s ({prove_s / wall:.3f}), "
+          f"witness generation {wit_s:.3f} s ({wit_s / wall:.3f}), other host work "
+          f"{wall - prove_s - wit_s:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name, st in (("cells", cells_stats), ("rows", rows_stats)):
+        print(f"vdb {name} schedule: levels {st.levels}, batches {st.batches}, "
+              f"items {st.items}, max batch {st.max_batch}, per level {st.per_level_sizes}")
+    for st in log.stages:
+        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
+              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
+    return counts
+
+
+def phase_vdb_production(card, dev, golden):
+    """The sets at CircuitConfig() against the golden digests, then the
+    2-cell -> rows_leaf chain proved and verified.  Runs in its own process
+    (VDB_PRODUCTION_FLAG), beside untimed phases of the main one."""
+    t0 = time.perf_counter()
+    vdb = V.VerifiableDbCircuits(CircuitConfig(), device=dev)
+    print(f"vdb production (CircuitConfig): both sets built and finalized in "
+          f"{time.perf_counter() - t0:.3f} s, in a second process")
+    _vdb_sets("vdb production", vdb, golden["production"])
+    g = golden["chain"]
+    t0 = time.perf_counter()
+    envs, _ = _row_chain(vdb, g["cells"], g["secondary"], tuple(g["row_unique_data"]),
+                         tuple(g["row_key"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not vdb.rows.verify(envs[-1]):
+        _fail("vdb production: fw.verify rejected the rows leaf")
+    print(f"vdb production chain: {' -> '.join(e.member for e in envs)} in {wall:.3f} s "
+          f"(serial prove, first use of each shape); rows leaf verified; peak device "
+          f"memory of its process {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"{card}")
+
+
+VDB_PRODUCTION_FLAG = "--vdb-production"
+
+
+def _start_vdb_production():
+    """phase_vdb_production in a second process on the same card: its set-up
+    is host-bound Python, so it overlaps the main process's untimed phases.
+    Its output is read when it is joined."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
+                             VDB_PRODUCTION_FLAG], cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _join_vdb_production(proc):
+    """Wait for the production process, print its output, fail with it."""
+    out, _ = proc.communicate()
+    print(out, end="")
+    if proc.returncode != 0:
+        _fail(f"the vdb production process exited with {proc.returncode}")
 
 
 def main():
@@ -562,42 +902,70 @@ def main():
         return 2
     with open(os.path.join(TESTDATA, "recursion_golden.json")) as f:
         rgolden = json.load(f)
+    with open(os.path.join(TESTDATA, "vdb_golden.json")) as f:
+        vgolden = json.load(f)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
+    if sys.argv[1:] == [VDB_PRODUCTION_FLAG]:
+        phase_vdb_production(card, dev, vgolden)
+        return 0
     t_start = time.perf_counter()
     launches = {}
 
+    # timed phases run alone on the card; the production vdb sets (host-bound
+    # set-up) overlap only the untimed recursion production and vdb set-up
     phase_toolchain(card)
     k1_err, k1_times = phase_k1(card)
     k2_err, k2_times = phase_k2(card)
+    k2c_err, k2c_times = phase_k2c(card)
     light, production = phase_tree_nodes(card, dev, launches)
     phase_timing(card, {"tree_node_proofs_per_s": light,
                         "tree_node_proofs_per_s_production": production})
-    counts, _ = phase_recursion_light(card, dev, rgolden["light"], launches)
-    phase_recursion_production(card, dev, rgolden["production"], launches)
+    del light, production
+    phase_recursion_light(card, dev, rgolden["light"], launches)
+    torch.cuda.empty_cache()
+    vdb_production = _start_vdb_production()
+    try:
+        phase_recursion_production(card, dev, rgolden["production"], launches)
+        torch.cuda.empty_cache()
+        vdb = phase_vdb_light(card, dev, vgolden)
+    except BaseException:
+        vdb_production.kill()
+        vdb_production.wait()
+        raise
+    _join_vdb_production(vdb_production)
+    counts = phase_vdb_update(card, vdb, launches)
 
-    k1 = k1_times[1 << 20]
+    def by_path(name):
+        return {p: c[name] for p, c in launches.items()}
+
     k2_shape = f"iNTT (16*{WIRES}, 2^13)"
-    k2 = k2_times[k2_shape]
+    k2c_shape = f"LDE (16*{WIRES}, 2^16)"
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(card)
     print(json.dumps({"kernels": [
         {"name": "poseidon2_permute_planar", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/poseidon2.cu",
          "replaces": "mp2_tpu/ops/poseidon2_pallas.py:114",
          "launches": counts["K1"], "max_abs_err": k1_err,
-         **k1, "library_ms": None, "lanes": 1 << 20,
-         "launches_by_path": {p: c["K1"] for p, c in launches.items()},
+         **k1_times[1 << 20], "library_ms": None, "lanes": 1 << 20,
+         "launches_by_path": by_path("K1"),
          "by_lanes": {str(k): v for k, v in k1_times.items()}},
         {"name": "ntt_rows", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/ntt.cu",
          "replaces": "mp2_tpu/ops/ntt_pallas.py:237",
          "launches": counts["K2"], "max_abs_err": k2_err,
-         **k2, "library_ms": None, "shape": k2_shape,
-         "launches_by_path": {p: c["K2"] for p, c in launches.items()},
-         "by_shape": k2_times},
+         **k2_times[k2_shape], "library_ms": None, "shape": k2_shape,
+         "launches_by_path": by_path("K2"), "by_shape": k2_times},
+        {"name": "ntt_four_step_t", "route": "cuda",
+         "source": "mp2_tpu_torch/csrc/ntt_t.cu",
+         "replaces": "mp2_tpu/ops/ntt_pallas.py:526",
+         "launches": counts["K2c"], "max_abs_err": k2c_err,
+         **k2c_times[k2c_shape], "library_ms": None, "shape": k2c_shape,
+         "launches_by_path": by_path("K2c"), "by_shape": k2c_times},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -21,7 +21,8 @@
 // butterfly, log_n / 2 per element, each emulated by several 32-bit
 // multiplies); a row's log_n stages touch every element log_n times, so the
 // design keeps the row in shared memory between stages and reads and
-// writes device memory once.
+// writes device memory once.  The stages are csrc/ntt_stages.cuh, shared
+// with K2c (csrc/ntt_t.cu, the transpose-fused four-step above 2^14).
 //
 // Design (a first, simple one): one thread block holds one row of n >= 2048
 // points, or 2048 / n rows of a smaller n, in dynamic shared memory as
@@ -42,6 +43,7 @@
 #include <stdint.h>
 
 #include "goldilocks.cuh"
+#include "ntt_stages.cuh"
 
 namespace {
 
@@ -68,29 +70,12 @@ ntt_rows_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
   // involution, so slot k then holds x[rev(k)])
   for (int e = threadIdx.x; e < elems; e += blockDim.x) {
     const int i = e & (n - 1);
-    const int j = (bitrev_input || log_n == 0)
-                      ? i
-                      : (int)(__brev((unsigned)i) >> (32 - log_n));
+    const int j = bitrev_input ? i : ntt::bitrev(i, log_n);
     sh[e - i + j] = gl::canon(src[e]);
   }
   __syncthreads();
 
-  for (int s = 1; s <= log_n; ++s) {
-    const int h = 1 << (s - 1);
-    const uint64_t* tw = stage_tw + (h - 1);
-    // butterfly k: group k / h of 2h slots, offset j = k % h; groups never
-    // straddle rows since 2h divides n
-    for (int k = threadIdx.x; k < (elems >> 1); k += blockDim.x) {
-      const int j = k & (h - 1);
-      const int i0 = ((k - j) << 1) + j;
-      const int i1 = i0 + h;
-      const uint64_t a = sh[i0];
-      const uint64_t t = gl::mul(sh[i1], tw[j]);
-      sh[i0] = gl::add(a, t);
-      sh[i1] = gl::sub(a, t);
-    }
-    __syncthreads();
-  }
+  ntt::dit_stages(sh, nrows, log_n, n, stage_tw);
 
   for (int e = threadIdx.x; e < elems; e += blockDim.x) {
     uint64_t v = sh[e];

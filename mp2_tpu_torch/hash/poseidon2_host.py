@@ -1,7 +1,7 @@
 """Poseidon2 host golden model (python ints): the canonical semantics.
 
-A jax-free copy of `mp2_tpu/hash/poseidon2_host.py` (the map-to-curve
-helper, which needs the curve stack, is left out).
+A jax-free copy of `mp2_tpu/hash/poseidon2_host.py`: only the imports
+change.
 
 Used by host-side tree building (ryhope equivalents), digest computation, and
 as the reference for the vectorized JAX/Pallas implementations — which must
@@ -164,3 +164,10 @@ def hash_to_int(h: HashOut) -> int:
     limbs = [e0 & 0xFFFFFFFF, e0 >> 32, e1 & 0xFFFFFFFF, e1 >> 32]
     return sum(l << (32 * i) for i, l in enumerate(limbs))
 
+
+def map_to_curve_point(values: Sequence[int]):
+    """Poseidon-hash values to GF(p^5), then SSWU to the digest curve
+    (mp2-common/src/group_hashing/field_to_curve.rs:37-49)."""
+    from mp2_tpu_torch.field.sswu import simple_swu
+
+    return simple_swu(hash_to_quintic(values))

@@ -5,7 +5,8 @@ kernel K2, launched by `_compiled_fused_lazy_pk` through `ntt_full` and
 both passes of `ntt_four_step_fused`) and the variants that compute the
 same function: `_dit_body_lazy` (K2a), `_dit_body` (K2b) and `_make_kernel`
 (K2d, `ntt_stages_bitrev_input`: the `bitrev_input` flag here).  The kernel
-source is `csrc/ntt.cu` on `csrc/goldilocks.cuh`; its header comment says
+source is `csrc/ntt.cu` on `csrc/ntt_stages.cuh` (the stages it shares
+with K2c) and `csrc/goldilocks.cuh`; its header comment says
 what bounds it on Hopper (the bytes, one read and one write of each element,
 about level with the 64-bit products) and how the design answers that (each
 row stays in shared memory for all its stages).
@@ -37,7 +38,7 @@ from mp2_tpu_torch.field.goldilocks import P, POWER_OF_TWO_GENERATOR
 from mp2_tpu_torch.ops._nvcc import Built, build_library
 
 MAX_LOG_N = 14  # a row of 2^14 u64 fills 128 KB of shared memory
-_SOURCES = ("ntt.cu", "goldilocks.cuh")
+_SOURCES = ("ntt.cu", "ntt_stages.cuh", "goldilocks.cuh")
 
 
 # ---------------------------------------------------------------------------

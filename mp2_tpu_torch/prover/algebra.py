@@ -103,11 +103,31 @@ class TorchAlgebra:
         return [v[i] for i in range(v.shape[0])]
 
     def matmul_const(self, A, v):
-        """out[i, ...] = sum_j A[i][j] * v[j, ...] for an int matrix A."""
-        m, k = len(A), len(A[0])
-        a = gl.from_u64(np.array(A, dtype=np.uint64), self.device)
-        a = a.reshape((m, k) + (1,) * (v.dim() - 1))
-        return gl.sum_axis(gl.mul(a, v[None]), axis=1)
+        """out[i, ...] = sum_j A[i][j] * v[j, ...] for an int matrix A.
+
+        A (nearly) dense A, such as the Poseidon2 matrices, is broadcast
+        against v in one product.  Where no row has more than half its
+        entries nonzero (the block-diagonal weights of a bit decomposition,
+        ops x ops*bits), each row multiplies only the rows of v under its
+        nonzero entries, gathered: the (m, k, ...) product of the dense form
+        grows with ops^2 and, at a chunk of the quotient of a 2^14-row
+        verifiable-DB member, would need 18 GiB."""
+        A = np.array(A, dtype=np.uint64)
+        m, k = A.shape
+        tail = (1,) * (v.dim() - 1)
+        nonzero = [np.flatnonzero(row) for row in A]
+        kk = max(1, max(len(j) for j in nonzero))
+        if 2 * kk > k:
+            a = gl.from_u64(A, self.device).reshape((m, k) + tail)
+            return gl.sum_axis(gl.mul(a, v[None]), axis=1)
+        idx = np.zeros((m, kk), dtype=np.int64)
+        coef = np.zeros((m, kk), dtype=np.uint64)  # zero coefficients pad short rows
+        for i, j in enumerate(nonzero):
+            idx[i, : len(j)] = j
+            coef[i, : len(j)] = A[i, j]
+        rows = v[torch.from_numpy(idx).to(v.device)]  # (m, kk, ...)
+        c = gl.from_u64(coef, self.device).reshape((m, kk) + tail)
+        return gl.sum_axis(gl.mul(c, rows), axis=1)
 
     def add_col_const(self, v, col):
         """v (k, ...) + per-lane constants col (k,)."""

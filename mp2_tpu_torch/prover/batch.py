@@ -333,7 +333,7 @@ def prove_batch(
 
     # --- wires ---
     wit = gl.from_u64(np.asarray(witnesses, dtype=np.uint64), dev)  # (B, n, W)
-    wire_coeffs = ntt.intt(wit.transpose(1, 2))  # (B, W, n)
+    wire_coeffs = ntt.intt(wit.transpose(1, 2).contiguous())  # (B, W, n)
     wire_lde = ntt.lde(wire_coeffs, rate, SHIFT)
     wires_tree = BatchedMerkleTree(_leaves_batched(wire_lde), cap_height=cap_h)
     ch.observe(wires_tree.cap.reshape(B, -1))

@@ -3,19 +3,21 @@
 Port of `mp2_tpu/prover/ntt.py`.  Every transform of up to 2^14 points is
 one `ops/ntt_cuda.ntt_rows` call over all rows, flattened to (R, n): on the
 card that is one launch of K2 (the fused NTT kernel), on the CPU its plain
-radix-2 twin.  From 2^15 points the four-step (Bailey) decomposition of
-`mp2_tpu/ops/ntt_pallas.py::ntt_four_step_fused` runs instead: K2 over the
-columns with the middle twiddle in its epilogue, a torch transpose, K2 over
-the rows, and the transpose back.  The reference gates its kernel at 512
-points; on the card the gate is dropped, since an eager plain stage costs
-dozens of launches (a field multiply alone is ~30).
+radix-2 twin.  From 2^15 points the four-step (Bailey) decomposition runs
+instead, as `ops/ntt_t_cuda.ntt_four_step_t`: on the card two launches of
+K2c (the transpose-fused four-step kernel, `ntt_pallas.py::
+ntt_four_step_fused_t` in the reference, where it is opt-in), with no
+transpose or copy through device memory between or around its passes; on
+the CPU its plain twin, K2's plain passes with torch transposes.  The
+reference gates its kernel at 512 points; on the card the gate is dropped,
+since an eager plain stage costs dozens of launches (a field multiply alone
+is ~30).
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
 
-import numpy as np
 import torch
 
 from mp2_tpu_torch.field import goldilocks as gl
@@ -28,6 +30,7 @@ from mp2_tpu_torch.ops.ntt_cuda import (  # noqa: F401  (re-exported tables)
     _root_of_unity,
     ntt_rows,
 )
+from mp2_tpu_torch.ops.ntt_t_cuda import ntt_four_step_t
 
 
 @lru_cache(maxsize=None)
@@ -53,38 +56,10 @@ def _ntt_small(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     return ntt_rows(x.reshape(-1, n).contiguous(), inverse, scale=inverse).reshape(x.shape)
 
 
-@lru_cache(maxsize=None)
-def _four_step_twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
-    """w^(k1*j2) as an (n2, n1) table: row j2 is the middle twiddle of the
-    column transform that pass 1 computes for column j2."""
-    log1 = log_n // 2
-    n1, n2 = 1 << log1, 1 << (log_n - log1)
-    w = _root_of_unity(log_n)
-    if inverse:
-        w = pow(w, P - 2, P)
-    out = np.empty((n2, n1), dtype=np.uint64)
-    for j2 in range(n2):
-        out[j2] = _power_table(pow(w, j2, P), n1)
-    return gl.from_u64(out, device)
-
-
 def _ntt_four_step(x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """Bailey: view n = n1*n2 as (n1, n2) row-major, n1 = 2^floor(log n / 2);
-    y[k1 + n1*k2] = NTT_j2( w^(j2 k1) * NTT_j1(x[j1, j2])[k1] )[k2]:
-    1) transform the columns, with the middle twiddle, 2) transform the
-    rows, 3) read out transposed.  An inverse scales each pass by its own
-    length's inverse, n1^-1 * n2^-1 = n^-1."""
+    """The four-step over all rows of a contiguous (..., n) tensor."""
     n = x.shape[-1]
-    log_n = n.bit_length() - 1
-    log1 = log_n // 2
-    n1, n2 = 1 << log1, 1 << (log_n - log1)
-    batch = tuple(x.shape[:-1])
-    cols = x.reshape(-1, n1, n2).transpose(1, 2).reshape(-1, n1)  # (B*n2, n1)
-    a = ntt_rows(cols, inverse, twiddle=_four_step_twiddles(log_n, inverse, x.device),
-                 scale=inverse)
-    rows = a.reshape(-1, n2, n1).transpose(1, 2).reshape(-1, n2)  # (B*n1, n2)
-    c = ntt_rows(rows, inverse, scale=inverse)
-    return c.reshape(-1, n1, n2).transpose(1, 2).reshape(batch + (n,))
+    return ntt_four_step_t(x.view(-1, n), inverse).view(x.shape)
 
 
 def intt(x: torch.Tensor) -> torch.Tensor:

@@ -95,37 +95,36 @@ class CircuitData:
             for j, c in enumerate(r.constants):
                 constants_values[i, j] = c
 
-        # sigma from copy classes
+        # sigma from copy classes.  Cell (r, c) has the id k_c * g^r; the
+        # (n, W) table of ids is one field product on the CPU (a Python loop
+        # over the n * W cells was most of a large circuit's compile).
         W = cfg.num_wires
         ks = _k_coeffs(W)
         g = ntt._root_of_unity(log_n)
-        x_pows = [1] * n
-        for i in range(1, n):
-            x_pows[i] = x_pows[i - 1] * g % P
+        ids = gl.to_u64(gl.mul(gl.from_u64(ntt._power_table(g, n), "cpu")[:, None],
+                               gl.from_u64(np.array(ks, dtype=np.uint64), "cpu")[None, :]))
 
-        def cell_id(cell):
-            r, c = cell
-            return ks[c] * x_pows[r] % P
-
-        classes: Dict = {}
-        for cell in list(builder.dsu.parent.keys()):
-            root = builder.dsu.find(cell)
-            classes.setdefault(root, []).append(cell)
-        # ensure roots themselves are in their class lists; dedupe
-        for root in list(classes.keys()):
-            classes[root] = sorted(set(classes[root]) | {root})
-
-        sigma_values = np.zeros((n, W), dtype=np.uint64)
-        for i in range(n):
-            for j in range(W):
-                sigma_values[i, j] = cell_id((i, j))
-        for root, cells in classes.items():
-            cells = [c for c in cells if c[0] < n and c[1] < W]
-            cells.sort()
-            m = len(cells)
-            for idx, cell in enumerate(cells):
-                nxt = cells[(idx + 1) % m]
-                sigma_values[cell[0], cell[1]] = cell_id(nxt)
+        # each copy class is a cycle through its cells in (row, col) order:
+        # a cell's sigma is the id of the next cell of its class.  Classes
+        # are grouped by sorting cell codes r * W + c under their root.
+        find = builder.dsu.find
+        pairs = [(find(cell), cell) for cell in list(builder.dsu.parent.keys())]
+        pairs += [(root, root) for root in {root for root, _ in pairs}]
+        root_index: Dict = {}
+        root_ids, codes = [], []
+        for root, (r, c) in pairs:
+            if r < n and c < W:
+                root_ids.append(root_index.setdefault(root, len(root_index)))
+                codes.append(r * W + c)
+        sigma_values = ids.copy()
+        if codes:
+            root_ids, codes = np.array(root_ids), np.array(codes)
+            order = np.lexsort((codes, root_ids))
+            root_ids, codes = root_ids[order], codes[order]
+            starts = np.flatnonzero(np.r_[True, root_ids[1:] != root_ids[:-1]])
+            nxt = np.roll(codes, -1)
+            nxt[np.r_[starts[1:], len(codes)] - 1] = codes[starts]
+            sigma_values.reshape(-1)[codes] = ids.reshape(-1)[nxt]
 
         data = CircuitData(
             config=cfg,
@@ -176,15 +175,33 @@ class CircuitData:
         return [tuple(int(x) for x in r) for r in gl.to_u64(self.fixed_tree.cap)]
 
     # ------------------------------------------------------------ witness gen
+    def _witness_layout(self):
+        """(parent map, rows, cols, roots), built once per circuit: the copy
+        constraints fully compressed, so parent.get(t, t) is t's class
+        representative, and every wired cell of the trace with its
+        representative.  The classes do not change after compile."""
+        layout = self.__dict__.get("_layout")
+        if layout is None:
+            dsu = self.dsu_parent
+            for t in list(dsu.parent):
+                dsu.find(t)
+            W = self.config.num_wires
+            cells = [(t, root) for t, root in dsu.parent.items()
+                     if t[0] < self.n and t[1] < W]
+            rows = np.array([t[0] for t, _ in cells], dtype=np.int64)
+            cols = np.array([t[1] for t, _ in cells], dtype=np.int64)
+            layout = self._layout = (dsu.parent, rows, cols, [root for _, root in cells])
+        return layout
+
     def generate_witness(self, inputs: Dict) -> np.ndarray:
+        parent, rows, cols, roots = self._witness_layout()
         values: Dict = {}
-        find = self.dsu_parent.find
 
         def read(t):
-            return values.get(find(t), 0)
+            return values.get(parent.get(t, t), 0)
 
         for t, v in inputs.items():
-            root = find(t)
+            root = parent.get(t, t)
             v = v % P
             prev = values.get(root)
             if prev is not None and prev != v:
@@ -194,7 +211,7 @@ class CircuitData:
                 )
             values[root] = v
         for out, fn in self.generators:
-            root = find(out)
+            root = parent.get(out, out)
             v = fn(read) % P
             prev = values.get(root)
             if prev is not None and prev != v:
@@ -203,13 +220,12 @@ class CircuitData:
 
         W = self.config.num_wires
         w = np.zeros((self.n, W), dtype=np.uint64)
-        for (r, c), root in list(self.dsu_parent.parent.items()):
-            if r < self.n and c < W:
-                w[r, c] = values.get(find((r, c)), 0)
-        for root, v in values.items():
-            r, c = root
-            if r < self.n and c < W:
-                w[r, c] = v
+        w[rows, cols] = np.fromiter((values.get(r, 0) for r in roots),
+                                    dtype=np.uint64, count=len(roots))
+        own = [(r, c, v) for (r, c), v in values.items() if r < self.n and c < W]
+        if own:
+            rr, cc, vv = zip(*own)
+            w[list(rr), list(cc)] = np.array(vv, dtype=np.uint64)
         return w
 
     def check_witness(self, w: np.ndarray, public_inputs: List[int]) -> None:
@@ -247,14 +263,31 @@ def _x_table(log_big: int) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def _lde_tables(log_n: int, rate_bits: int):
-    """Host tables on the big coset: x, Z_H(x)^-1, L0(x) (python-int math)."""
+    """Host tables on the big coset: x, Z_H(x)^-1, L0(x) (python-int math).
+
+    x = SHIFT * w^i with w the 2^(log_n + rate_bits)-th root, so x^n takes
+    2^rate_bits values in turn, and the 8n inverses of L0's denominators
+    are one inversion and three products each (Montgomery's trick): a
+    modular power per point took 15 s at 2^15 rows."""
     n = 1 << log_n
-    w_pows = [int(v) for v in _x_table(log_n + rate_bits)]
-    x = [SHIFT * v % P for v in w_pows]
-    zh = [(pow(v, n, P) - 1) % P for v in x]
-    zh_inv = [pow(v, P - 2, P) for v in zh]
+    x = [SHIFT * int(v) % P for v in _x_table(log_n + rate_bits)]
+    reps = len(x) >> rate_bits
+    zh_period = [(pow(v, n, P) - 1) % P for v in x[: 1 << rate_bits]]
+    zh = zh_period * reps
+    zh_inv = [pow(v, P - 2, P) for v in zh_period] * reps
     # L0(x) = (x^n - 1) / (n (x - 1))
-    l0 = [z * pow(n * (v - 1) % P, P - 2, P) % P for v, z in zip(x, zh)]
+    den = [n * (v - 1) % P for v in x]
+    prefix, acc = [], 1
+    for d in den:
+        prefix.append(acc)
+        acc = acc * d % P
+    if acc == 0:
+        raise ValueError("x = 1 on the LDE coset")
+    inv = pow(acc, P - 2, P)  # 1 / (den[0] ... den[i]) as i walks down
+    l0 = [0] * len(x)
+    for i in range(len(x) - 1, -1, -1):
+        l0[i] = zh[i] * (inv * prefix[i] % P) % P
+        inv = inv * den[i] % P
     return (
         np.array(x, dtype=np.uint64),
         np.array(zh_inv, dtype=np.uint64),

@@ -1,4 +1,4 @@
-"""K1, K2 and the batched prover on a CUDA card.  These tests skip where there is
+"""K1, K2, K2c and the batched prover on a CUDA card.  These tests skip where there is
 no card.  The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
@@ -14,6 +14,7 @@ import torch
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.hash import poseidon2_host as p2h
 from mp2_tpu_torch.ops import ntt_cuda as N
+from mp2_tpu_torch.ops import ntt_t_cuda as T
 from mp2_tpu_torch.ops import poseidon2_cuda as K
 from mp2_tpu_torch.prover import ntt
 from mp2_tpu_torch.prover.batch import prove_batch
@@ -74,11 +75,32 @@ def test_ntt_kernel_matches_plain(cuda, log_n):
 
 @pytest.mark.cuda
 def test_four_step_on_card_matches_cpu(cuda):
-    """The four-step NTT at 2^15 (two K2 passes) equals the CPU's."""
+    """The four-step NTT at 2^15 (two K2c launches) equals the CPU's."""
     x = np.random.default_rng(15).integers(0, gl.P, size=(2, 1 << 15), dtype=np.uint64)
     for inverse in (False, True):
+        before = T.ntt_four_step_t.launches
         got = ntt.ntt(gl.from_u64(x, cuda), inverse)
+        assert T.ntt_four_step_t.launches == before + 2
         assert torch.equal(got.cpu(), ntt.ntt(gl.from_u64(x, "cpu"), inverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [6, 9, 16, 18])
+def test_four_step_kernel_matches_plain(cuda, log_n):
+    """K2c against its plain version, bit for bit, both directions."""
+    x = gl.from_u64(np.random.default_rng(log_n).integers(
+        0, gl.P, size=(3, 1 << log_n), dtype=np.uint64), cuda)
+    for inverse in (False, True):
+        assert torch.equal(T.ntt_four_step_t(x, inverse), T.ntt_four_step_plain(x, inverse))
+    with pytest.raises(ValueError):
+        T.ntt_four_step_t(x[:, ::2], False)  # not contiguous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [5, 21])
+def test_four_step_kernel_refuses_sizes_it_does_not_take(cuda, log_n):
+    with pytest.raises(ValueError, match="takes rows of"):
+        T.ntt_four_step_t(torch.zeros((1, 1 << log_n), dtype=torch.int64, device=cuda), False)
 
 
 @pytest.mark.cuda

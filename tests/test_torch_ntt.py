@@ -1,12 +1,13 @@
-"""K2's plain twin and the port's NTT against mp2_tpu on the CPU.
+"""K2's and K2c's plain twins and the port's NTT against mp2_tpu on the CPU.
 
-`ops/ntt_cuda.ntt_rows_plain` is held against the reference's Pallas NTT
-kernels run in interpret mode (as tests/test_ntt_pallas.py runs them), the
+`ops/ntt_cuda.ntt_rows_plain` (K2) and `ops/ntt_t_cuda.ntt_four_step_plain`
+(K2c) are held against the reference's Pallas NTT kernels run in interpret
+mode (as tests/test_ntt_pallas.py runs them), the
 port's `prover/ntt` transforms at the four-step sizes against
 `mp2_tpu.prover.ntt`, and the kernel's flags against the reference's
 formulas.  Inputs come from numpy with a seed; every comparison is exact.
-The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py and
-chip_smoke.py).
+The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py
+and chip_smoke.py).
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from mp2_tpu.field import goldilocks as jgl
 from mp2_tpu.prover import ntt as jntt
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.ops import ntt_cuda as N
+from mp2_tpu_torch.ops import ntt_t_cuda as T
 from mp2_tpu_torch.prover import ntt
 
 P = gl.P
@@ -113,7 +115,7 @@ def test_twiddle_flag_is_the_four_step_middle_twiddle(log_n, inverse):
     n1, n2 = 1 << log1, 1 << (log_n - log1)
     ref = np.ascontiguousarray(jntt._four_step_twiddles(log_n, inverse).T)  # (n2, n1)
     np.testing.assert_array_equal(
-        gl.to_u64(ntt._four_step_twiddles(log_n, inverse, "cpu")), ref)
+        gl.to_u64(T._four_step_twiddles(log_n, inverse, "cpu")), ref)
     x = _rand(300 + log_n, (2 * n2, n1))
     got = _plain(x, inverse, twiddle=gl.from_u64(ref, "cpu"), scale=inverse)
     cols = N.ntt_rows_plain(gl.from_u64(x, "cpu"), inverse, scale=inverse)
@@ -178,3 +180,59 @@ def test_stage_table_layout():
         h = 1 << (s - 1)
         w = jntt._root_of_unity(s)
         assert [int(v) for v in table[h - 1 : 2 * h - 1]] == [pow(w, j, P) for j in range(h)]
+
+
+# ---------------------------------------------------------------------------
+# K2c: the transpose-fused four-step (ops/ntt_t_cuda)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", [6, 7, 8, 9, 10])
+def test_four_step_t_plain_matches_pallas_fused_t(log_n, inverse):
+    """ntt_four_step_fused_t (K2c, both transpose-fused passes, interpret
+    mode) == ntt_four_step_plain, at every size from 2^6 (the kernel's
+    least: n1, n2 >= 8) to 2^10."""
+    from mp2_tpu.ops.ntt_pallas import ntt_four_step_fused_t
+
+    x = _rand(700 + log_n, (2, 1 << log_n))
+    want = np.asarray(ntt_four_step_fused_t(jnp.asarray(x), inverse))
+    got = gl.to_u64(T.ntt_four_step_plain(gl.from_u64(x, "cpu"), inverse))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_four_step_t_plain_matches_reference_xla_four_step():
+    """At 2^15, both directions, against the reference's XLA four-step
+    (mp2_tpu/prover/ntt.py::_ntt_four_step_xla), the route its prover takes
+    without a Pallas kernel."""
+    x = _rand(715, (1, 1 << 15))
+    for inverse in (False, True):
+        want = jgl.to_u64(jntt._ntt_four_step_xla(jgl.from_u64(x), inverse))
+        np.testing.assert_array_equal(
+            gl.to_u64(T.ntt_four_step_plain(gl.from_u64(x, "cpu"), inverse)), want)
+
+
+def test_four_step_t_wrapper_takes_the_plain_path_on_the_cpu():
+    """The prover's four-step is the wrapper; on the CPU it launches nothing."""
+    x = gl.from_u64(_rand(800, (1, 1, 1 << 15)), "cpu")
+    before = T.ntt_four_step_t.launches
+    out = ntt.ntt(x)
+    assert T.ntt_four_step_t.launches == before
+    assert torch.equal(out[0], T.ntt_four_step_plain(x[0], False))
+
+
+@pytest.mark.parametrize("shape, dtype", [
+    ((2, 2), torch.int64),  # below 4
+    ((2, 96), torch.int64),  # not a power of two
+    ((2, 64), torch.int32),
+    ((2, 2, 64), torch.int64),  # not (B, n)
+])
+def test_four_step_t_wrapper_refuses_shapes_the_kernel_does_not_take(shape, dtype):
+    with pytest.raises(ValueError):
+        T.ntt_four_step_t(torch.zeros(shape, dtype=dtype), False)
+
+
+def test_four_step_t_wrapper_refuses_devices_without_the_kernel():
+    with pytest.raises(ValueError, match="no four-step NTT kernel"):
+        T.ntt_four_step_t(torch.zeros((2, 64), dtype=torch.int64, device="meta"), False)
+

@@ -185,7 +185,7 @@ def test_prove_batch_rejects_public_inputs_of_another_length(tree_node):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (and chip_smoke.py) leaves jax out
-    of sys.modules; the walk reaches the recursion slice's modules."""
+    of sys.modules; the walk reaches the recursion and vdb slices' modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mp2_tpu_torch\n"
@@ -197,7 +197,12 @@ def test_port_imports_no_jax():
         "want = ['ops.ntt_cuda', 'ops._nvcc', 'circuit.gadgets.ext2',\n"
         "        'circuit.gadgets.transcript', 'recursion.verifier_gadget',\n"
         "        'recursion.framework', 'recursion.wrap', 'recursion.runtime',\n"
-        "        'utils.trace']\n"
+        "        'utils.trace', 'ops.ntt_t_cuda', 'utils.u256', 'field.gfp5',\n"
+        "        'field.sswu', 'field.ecgfp5', 'circuit.gadgets.gfp5',\n"
+        "        'circuit.gadgets.curve', 'circuit.gadgets.u256',\n"
+        "        'ryhope.updatetree', 'ryhope.scapegoat', 'ryhope.sbbst',\n"
+        "        'ryhope.kvdb', 'vdb.digests', 'vdb.trees', 'vdb.circuits',\n"
+        "        'parallel.scheduler']\n"
         "missing = [m for m in want if 'mp2_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )

@@ -13,6 +13,7 @@ one more batch with `torch.profiler` and prints one JSON line per shape:
   idle_share       1 - busy / the median unprofiled wall
   k1_ms, k1_events the Poseidon2 kernel's share of the device time
   k2_ms, k2_events the NTT kernel's share
+  k2c_ms, k2c_events the four-step NTT kernel's share (2^15 points and up)
   host_cpu_ms      self CPU time of the profiled host ops
 The profiler's key_averages table (top rows by device time) goes to stdout,
 or whole to `--out`.  Imports no JAX.
@@ -35,6 +36,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from mp2_tpu_torch.hash import poseidon2_host as p2h  # noqa: E402
 from mp2_tpu_torch.ops import ntt_cuda as N  # noqa: E402
+from mp2_tpu_torch.ops import ntt_t_cuda as T  # noqa: E402
 from mp2_tpu_torch.ops import poseidon2_cuda as K  # noqa: E402
 from mp2_tpu_torch.prover.batch import prove_batch  # noqa: E402
 from mp2_tpu_torch.prover.config import CircuitConfig, test_config  # noqa: E402
@@ -94,6 +96,7 @@ def profile_shape(name, data, wits, pis, runs):
     walls = [_timed(data, wits, pis) for _ in range(runs)]
     K.permute_planar.launches = 0
     N.ntt_rows.launches = 0
+    T.ntt_four_step_t.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prove_batch(data, wits, pis)
         torch.cuda.synchronize()
@@ -101,6 +104,7 @@ def profile_shape(name, data, wits, pis, runs):
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     k1 = [e for e in device if "poseidon2" in e.key]
     k2 = [e for e in device if "ntt_rows" in e.key]
+    k2c = [e for e in device if "ntt_cols" in e.key]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     rec = {
         "shape": name,
@@ -116,6 +120,9 @@ def profile_shape(name, data, wits, pis, runs):
         "k2_ms": sum(e.self_device_time_total for e in k2) / 1e3,
         "k2_events": sum(e.count for e in k2),
         "k2_launches": N.ntt_rows.launches,
+        "k2c_ms": sum(e.self_device_time_total for e in k2c) / 1e3,
+        "k2c_events": sum(e.count for e in k2c),
+        "k2c_launches": T.ntt_four_step_t.launches,
         "host_cpu_ms": sum(e.self_cpu_time_total for e in events) / 1e3,
     }
     return rec, events
