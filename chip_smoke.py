@@ -2,14 +2,20 @@
 
     python3 chip_smoke.py
 
-Builds K1 (the Poseidon2 CUDA kernel), K2 (the fused-NTT CUDA kernel) and
-K2c (the transpose-fused four-step NTT CUDA kernel) from the sources in this
-checkout, the three `nvcc` runs started together, and holds each bit for bit
-against its plain PyTorch version at the shapes the prover gives it (K1 also
-against the host model; K2 at every size from 2^1 to 2^14 with every flag;
-K2c from 2^6 to 2^10 and from 2^15 to 2^20, at B=1 and 3, and at the LDE
-widths, where the K2 + torch-transpose four-step it replaced is timed
-beside it).  Then it drives three paths:
+Builds K1 (the Poseidon2 CUDA kernels: the permutation, the Merkle leaf
+hash and the Merkle levels), K2 (the fused-NTT CUDA kernel), K2c (the
+transpose-fused four-step NTT CUDA kernel, with its LDE and coset-iNTT
+entries) and P1 (the field-primitive probe) from the sources in this
+checkout, the four `nvcc` runs started together, and prints each kernel's
+registers, spills and SASS instruction counts.  P1 runs first: every
+primitive's cost on the card, each chain bit for bit against its plain
+twin.  Then it holds each kernel bit for bit against its plain PyTorch
+version at the shapes the prover gives it (K1 also against the host model,
+and its Merkle entries against the sponge-by-permutation composition they
+replaced; K2 at every size from 2^1 to 2^14 with every flag; K2c from 2^6
+to 2^10 and from 2^15 to 2^20, at B=1 and 3, and at the LDE widths, where
+the K2 + torch-transpose four-step and the pad + coset-multiply + K2c
+composition it replaced are timed beside it).  Then it drives three paths:
 
   tree-node proofs (the map phase): batches of tree-node proofs with
   `prover/batch.prove_batch` at the light (`test_config`, B=32) and the
@@ -76,6 +82,7 @@ from mp2_tpu_torch.ops import _nvcc
 from mp2_tpu_torch.ops import ntt_cuda as N
 from mp2_tpu_torch.ops import ntt_t_cuda as T
 from mp2_tpu_torch.ops import poseidon2_cuda as K
+from mp2_tpu_torch.ops import probe_cuda as PC
 from mp2_tpu_torch.parallel.scheduler import MapReduceScheduler
 from mp2_tpu_torch.prover import ntt
 from mp2_tpu_torch.prover.batch import prove_batch
@@ -102,22 +109,37 @@ WIRES = 136  # columns of every circuit here (CircuitConfig.num_wires)
 # card has no 64-bit integer multiplier: a 64x64 -> 128 product is four
 # 32-bit limb products, each a low and a high half, so 8 issues of the
 # 32-bit integer multiplier, which runs 64 lanes per SM per clock on 132 SMs
-# at the 1.98 GHz boost clock.
+# at the 1.98 GHz boost clock; a square needs three limb products (the
+# cross term once), 6 issues.  Only the products the function needs are
+# counted: none by a unit twiddle or by a known zero.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
-ISSUES_PER_MUL64 = 8
-P2_MULS = (8 * 12 + 22) * 4 + 22 * 12  # S-box and internal-diagonal products
+MUL64_ISSUES = 8
+SQR64_ISSUES = 6
+# a permutation: 118 S-boxes x^7 (2 squares, 2 products) and 22 * 12
+# products by the internal diagonal
+P2_ISSUES = (8 * 12 + 22) * (2 * SQR64_ISSUES + 2 * MUL64_ISSUES) + 22 * 12 * MUL64_ISSUES
 
 
 def _fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def _bound(nbytes, mul64):
-    """(least ms, what bounds it) for `nbytes` moved and `mul64` products."""
+def _bound(nbytes, issues):
+    """(least ms, what bounds it) for `nbytes` moved and `issues` of the
+    32-bit integer multiplier."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = mul64 * ISSUES_PER_MUL64 / INT32_MUL_PER_S * 1e3
+    t_ops = issues / INT32_MUL_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _dit_muls(log_l, zero_stages=0):
+    """Products of one radix-2 transform of 2^log_l points that are not by a
+    unit twiddle (stage s has 2^log_l / 2^s of them), where the first
+    `zero_stages` stages only copy: the input is non-zero at one slot in
+    2^zero_stages (an LDE's zero padding)."""
+    half = 1 << (log_l - 1)
+    return sum(half - (1 << (log_l - s)) for s in range(zero_stages + 1, log_l + 1))
 
 
 def _time_ms(fn, reps):
@@ -132,6 +154,19 @@ def _time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timed_once(fn):
+    """(fn(), its device time in ms): one call between CUDA events, for the
+    plain versions whose single call takes seconds."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _max_abs_err(a, b):
@@ -153,18 +188,27 @@ def _rand_rows(rng, shape, dev):
     return gl.from_u64(x, dev)
 
 
-KERNELS = {"K1": K.permute_planar, "K2": N.ntt_rows, "K2c": T.ntt_four_step_t}
+# each kernel's wrappers; a kernel's launches are the sum of theirs
+KERNELS = {"K1": (K.permute_planar, K.hash_leaves, K.merkle_levels),
+           "K2": (N.ntt_rows,), "K2c": (T.ntt_four_step_t,), "P1": (PC.probe,)}
+PROVER_KERNELS = ("K1", "K2", "K2c")
+
+
+def _count(name):
+    return sum(w.launches for w in KERNELS[name])
 
 
 def _reset_counts():
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    for wrappers in KERNELS.values():
+        for w in wrappers:
+            w.launches = 0
 
 
-def _read_counts(path, launches, kernels=tuple(KERNELS)):
-    """Record the kernels' launch counts of `path`; fail if one of the
-    `kernels` that the path runs was not launched."""
-    got = {name: wrapper.launches for name, wrapper in KERNELS.items()}
+def _read_counts(path, launches, kernels=PROVER_KERNELS):
+    """Record the kernels' launch counts of `path` (K1 also by entry); fail
+    if one of the `kernels` that the path runs was not launched."""
+    got = {name: _count(name) for name in KERNELS}
+    got["K1 entries"] = {w.__name__: w.launches for w in KERNELS["K1"]}
     launches[path] = got
     print(f"{path}: " + ", ".join(f"{k} launches {v}" for k, v in got.items()))
     for name in kernels:
@@ -180,16 +224,50 @@ def phase_toolchain(card):
     nvcc = subprocess.run([_nvcc.nvcc(), "--version"], capture_output=True, text=True)
     print("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    mods = (("K1", K), ("K2", N), ("K2c", T))
+    mods = (("K1", K), ("K2", N), ("K2c", T), ("P1", PC))
     with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per kernel, all at once
         builds = {name: ex.submit(mod.build) for name, mod in mods}
         builds = {name: f.result() for name, f in builds.items()}
     print(f"kernel builds: {time.perf_counter() - t0:.3f} s wall together")
+    sass = {}
     for name, built in builds.items():
         print(f"{name} build: nvcc {built.seconds:.3f} s -> {os.path.relpath(built.path)}")
         for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line or "entry function" in line) and \
+                    (name != "P1" or "_Z" not in line):
                 print("  ptxas: " + line.strip())
+        counts = _nvcc.sass_counts(built.path)
+        sass[name] = counts
+        for fn, (n_sass, n_mul) in counts.items():
+            if name != "P1":
+                print(f"  sass: {fn}: {n_sass} instructions, {n_mul} integer multiplies")
+    return sass
+
+
+def phase_probe(card):
+    """P1: each primitive's cost on the card (the slope of time against
+    chain length over 2^23 elements), every chain bit for bit against its
+    plain twin.  Returns the kernel record at mul_lazy, k = 128, the product
+    the redesigned K1 and K2c are built on."""
+    _reset_counts()
+    table, err = PC.measure()
+    launches = PC.probe.launches
+    if launches == 0:
+        _fail("the probe did not launch its kernel")
+    PC.print_table(table, card)
+    a, b = PC.inputs("cuda")
+    plain_ms = _time_ms(lambda: PC.probe_plain("mul_lazy", 128, a, b), 2)
+    bound_ms, bound_by = _bound(3 * 8 * PC.N, 128 * PC.N * MUL64_ISSUES)
+    record = {"ms": table["mul_lazy"]["ms"][128], "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches,
+              "max_abs_err": err, "op": "mul_lazy", "k": 128, "elements": PC.N,
+              "by_op": {op: {"ns_per_pass": row["ns_per_pass"], "gops": row["gops"],
+                             "int_instr_per_op": row["int_instr_per_op"]}
+                        for op, row in table.items()}}
+    print(f"P1 record: mul_lazy x128 over {PC.N} elements {record['ms']:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); {launches} "
+          f"launches, all bit-exact; {card}")
+    return record
 
 
 def phase_k1(card):
@@ -231,7 +309,7 @@ def phase_k1(card):
             _fail(f"K1 disagrees with its plain version at {lanes} lanes")
         k_ms = _time_ms(lambda: K.permute_planar(xs), 50 if lanes <= n else 10)
         p_ms = _time_ms(lambda: K.permute_planar_plain(xs), 5 if lanes <= n else 2)
-        bound_ms, bound_by = _bound(lanes * 12 * 8 * 2, lanes * P2_MULS)
+        bound_ms, bound_by = _bound(lanes * 12 * 8 * 2, lanes * P2_ISSUES)
         timings[lanes] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by}
         print(f"K1 at {lanes} lanes: kernel {k_ms:.4f} ms "
@@ -240,12 +318,77 @@ def phase_k1(card):
     return err, timings
 
 
+def _old_tree(lde, cap):
+    """The prover's Merkle tree before K1's entries: the plain twins'
+    composition (bit-reverse the points, transpose, sponge each leaf, hash
+    each level) on the permutation kernel, one launch per absorption and per
+    level, the yardstick the entries replaced."""
+    digests = K.hash_leaves_plain(lde, K.permute_planar)
+    return [digests] + K.merkle_levels_plain(digests, cap, K.permute_planar)
+
+
+def _new_tree(lde, cap):
+    digests = K.hash_leaves(lde)
+    return [digests] + K.merkle_levels(digests, cap)
+
+
+def _plain_tree(lde, cap):
+    digests = K.hash_leaves_plain(lde)
+    return [digests] + K.merkle_levels_plain(digests, cap)
+
+
+def phase_k1_merkle(card):
+    """K1's leaf-hash and level entries at the prover's tree shapes against
+    their plain twins and the sponge-by-permutation composition they
+    replaced, bit for bit; K1 launches per tree; times of all three."""
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda")
+    # wire trees of a B=16 wrap batch (2^13 rows, LDE 2^16) and a B=8
+    # aggregation batch (2^14 rows, LDE 2^17) at test_config (cap 1), and of
+    # a light tree-node batch (B=32, 16 rows, LDE 128 points)
+    shapes = [(f"tree ({batch}*{WIRES}, 2^{log_m})", batch, log_m, 1)
+              for batch, log_m in ((16, 16), (8, 17), (LIGHT_BATCH, 7))]
+    timings, err = {}, 0
+    for name, batch, log_m, cap in shapes:
+        m = 1 << log_m
+        lde = _rand_rows(rng, (batch, WIRES, m), dev)
+        before = K.launches()
+        new = _new_tree(lde, cap)
+        torch.cuda.synchronize()
+        k1_launches = K.launches() - before
+        plain, plain_ms = _timed_once(lambda: _plain_tree(lde, cap))
+        old = _old_tree(lde, cap)
+        for a, b, c in zip(new, plain, old, strict=True):
+            err = max(err, _max_abs_err(a, b))
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                _fail(f"K1's Merkle entries disagree with their plain twins or the old "
+                      f"composition at {name}")
+        del plain, old
+        new_ms = _time_ms(lambda: _new_tree(lde, cap), 10)
+        old_ms = _time_ms(lambda: _old_tree(lde, cap), 5)
+        perms = batch * m * -(-WIRES // 8) + batch * (m - (1 << cap))
+        out_words = 4 * batch * (2 * m - (1 << cap))
+        bound_ms, bound_by = _bound(8 * (batch * WIRES * m + out_words), perms * P2_ISSUES)
+        timings[name] = {"ms": new_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "sponge_composition_ms": old_ms,
+                         "k1_launches": k1_launches, "permutations": perms}
+        print(f"K1 Merkle entries at {name}, cap {cap}: {k1_launches} launches, "
+              f"{new_ms:.4f} ms ({perms / new_ms / 1e3:.1f}M perms/s); sponge-by-"
+              f"permutation composition {old_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+              f"bound {bound_ms:.4f} ms ({bound_by}); identical; {card}")
+        if log_m == 16 and k1_launches > 3:
+            _fail(f"the {name} tree took {k1_launches} K1 launches, more than 3")
+        del lde
+        torch.cuda.empty_cache()
+    return err, timings
+
+
 def _k2_work(rows, n, twiddle_rows, scale):
-    """(bytes, 64-bit products) of one ntt_rows call."""
+    """(bytes, multiplier issues) of one ntt_rows call."""
     log_n = n.bit_length() - 1
     nbytes = 16 * rows * n + 8 * (n - 1) + 8 * twiddle_rows * n
-    muls = rows * (n // 2) * log_n + rows * n * ((twiddle_rows > 0) + scale)
-    return nbytes, muls
+    muls = rows * _dit_muls(log_n) + rows * n * ((twiddle_rows > 0) + scale)
+    return nbytes, muls * MUL64_ISSUES
 
 
 def phase_k2(card):
@@ -310,23 +453,20 @@ def _four_step_k2(x, inverse):
     """The four-step as the port ran it before K2c: K2's passes with torch
     transposes (the plain four-step's code with the kernel passes), the
     yardstick K2c replaced."""
-    T.ntt_rows_plain = N.ntt_rows
-    try:
-        return T.ntt_four_step_plain(x, inverse)
-    finally:
-        T.ntt_rows_plain = N.ntt_rows_plain
+    return T.ntt_four_step_plain(x, inverse, N.ntt_rows)
 
 
 def _k2c_work(rows, n, inverse):
-    """(bytes, 64-bit products) of one ntt_four_step_t call, as the function
-    needs them: every input read once and every output written once (the
-    kernel's two passes move them twice), the middle-twiddle table and the
-    stage tables; log n / 2 products per element, one for the twiddle, one
-    for the scale of an inverse."""
+    """(bytes, multiplier issues) of one ntt_four_step_t call, as the
+    function needs them: every input read once and every output written once
+    (the kernel's two passes move them twice), the middle-twiddle table and
+    the stage tables; the products of a radix-2 transform of n points (as
+    many as the four-step's passes and middle twiddle need), one for the
+    scale of an inverse."""
     log1, log2 = T.split(n.bit_length() - 1)
     nbytes = 16 * rows * n + 8 * (n + (1 << log1) + (1 << log2))
-    muls = rows * (n // 2) * (n.bit_length() - 1) + rows * n * (1 + inverse)
-    return nbytes, muls
+    muls = rows * _dit_muls(n.bit_length() - 1) + rows * n * inverse
+    return nbytes, muls * MUL64_ISSUES
 
 
 def phase_k2c(card):
@@ -386,7 +526,71 @@ def phase_k2c(card):
               f"{card}")
         del x
         torch.cuda.empty_cache()
+
+    # the LDE and coset-iNTT entries at the slice's shapes (rate 3: the
+    # coefficients of 2^13, 2^14, 2^15 rows; the quotient's coset iNTT of a
+    # B=16 and a B=8 batch, 2 challenges), against their plain twins and
+    # the compositions they replaced (pad + plain coset multiply + K2c)
+    entries = [(f"LDE ({batch}*{WIRES}, 2^{log_n - 3} -> 2^{log_n})", batch * WIRES,
+                log_n, "lde") for batch, log_n in ((16, 16), (8, 17), (1, 18))]
+    entries += [(f"coset iNTT ({batch}*2, 2^{log_n})", batch * 2, log_n, "coset_intt")
+                for batch, log_n in ((16, 16), (8, 17))]
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    for name, rows, log_n, kind in entries:
+        if kind == "lde":
+            x = _rand_rows(rng, (rows, 1 << (log_n - 3)), dev)
+            new = lambda: T.lde_t(x, 3, shift)  # noqa: E731
+            plain = lambda: T.lde_t_plain(x, 3, shift)  # noqa: E731
+            old = lambda: T.lde_t_plain(x, 3, shift, T.ntt_four_step_t)  # noqa: E731
+        else:
+            x = _rand_rows(rng, (rows, 1 << log_n), dev)
+            new = lambda: T.coset_intt_t(x, shift)  # noqa: E731
+            plain = lambda: T.coset_intt_t_plain(x, shift)  # noqa: E731
+            old = lambda: T.coset_intt_t_plain(x, shift, T.ntt_four_step_t)  # noqa: E731
+        got = new()
+        err = max(err, _max_abs_err(got, plain()))
+        if not torch.equal(got, plain()) or not torch.equal(got, old()):
+            _fail(f"K2c's {kind} entry disagrees with its plain twin or the old "
+                  f"composition at {name}")
+        if kind == "coset_intt" and log_n == 16:
+            x2 = T.lde_t(got[:, :1 << 13].contiguous(), 3, shift)
+            if not torch.equal(T.coset_intt_t(x2, shift)[:, :1 << 13], got[:, :1 << 13]):
+                _fail("coset_intt_t(lde_t(c)) != c")
+        del got
+        k_ms = _time_ms(new, 20)
+        old_ms = _time_ms(old, 20)
+        p_ms = _time_ms(plain, 2)
+        bound_ms, bound_by = _bound(*_k2c_entry_work(rows, log_n, kind))
+        timings[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "composition_ms": old_ms}
+        print(f"K2c {kind} entry at {name}: kernel {k_ms:.4f} ms, the composition it "
+              f"replaced {old_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), identical; {card}")
+        del x
+        torch.cuda.empty_cache()
     return err, timings
+
+
+def _k2c_entry_work(rows, log_n, kind):
+    """(bytes, multiplier issues) of an LDE at rate 3 (coefficients in,
+    2^log_n points out, a coset factor per coefficient after the first) or a
+    coset iNTT (a factor per point) as the function needs them.  The LDE's
+    four-step: pass 1's columns of n1 points hold one coefficient in 8, so
+    its first 3 stages only copy; then pass 2's columns and the middle
+    twiddle, which is 1 in the first row and column of the (n1, n2) view."""
+    n = 1 << log_n
+    log1, log2 = T.split(log_n)
+    n1, n2 = 1 << log1, 1 << log2
+    nbytes = 8 * (n + n1 + n2)  # the middle-twiddle and stage tables
+    if kind == "lde":
+        n_in = n >> 3
+        nbytes += 8 * rows * (n_in + n) + 8 * n_in
+        muls = (n2 * _dit_muls(log1, 3) + n1 * _dit_muls(log2) + (n - n1 - n2 + 1)
+                + (n_in - 1))
+    else:
+        nbytes += 16 * rows * n + 8 * n
+        muls = _dit_muls(log_n) + n
+    return nbytes, rows * muls * MUL64_ISSUES
 
 
 def _prove_and_verify(name, data, inputs, batch, launches):
@@ -424,15 +628,19 @@ def phase_tree_nodes(card, dev, launches):
     digests = [proof_sha256(proof_to_dict(p)) for p in prove_batch(data, wits, pis)]
     if digests != golden["proof_sha256"]:
         _fail(f"B=2 proofs differ from the JAX golden digests: {digests}")
-    p2.permute_planar = K.permute_planar_plain  # the plain paths on the card
+    # the plain paths on the card: every K1 entry and K2 by their plain twins
+    entries = (K.hash_leaves, K.merkle_levels)
+    p2.permute_planar = K.permute_planar_plain
+    K.hash_leaves, K.merkle_levels = K.hash_leaves_plain, K.merkle_levels_plain
     ntt.ntt_rows = N.ntt_rows_plain
-    before = (K.permute_planar.launches, N.ntt_rows.launches)
+    before = [w.launches for w in KERNELS["K1"] + KERNELS["K2"]]
     try:
         plain = [proof_sha256(proof_to_dict(p)) for p in prove_batch(data, wits, pis)]
     finally:
         p2.permute_planar = K.permute_planar
+        K.hash_leaves, K.merkle_levels = entries
         ntt.ntt_rows = N.ntt_rows
-    if (K.permute_planar.launches, N.ntt_rows.launches) != before:
+    if [w.launches for w in KERNELS["K1"] + KERNELS["K2"]] != before:
         _fail("the plain-path prove launched a kernel")
     if plain != digests:
         _fail("the plain path on the card gives other proofs than the kernels")
@@ -526,14 +734,14 @@ class _StageLog:
 
     def __enter__(self):
         def counted(data, wits, pis):
-            k = {name: w.launches for name, w in KERNELS.items()}
+            k = {name: _count(name) for name in PROVER_KERNELS}
             t0 = time.perf_counter()
             out = self._orig(data, wits, pis)
             torch.cuda.synchronize()
             self.stages.append({"n": data.n, "B": len(pis),
                                 "s": time.perf_counter() - t0,
-                                **{name: w.launches - k[name]
-                                   for name, w in KERNELS.items()}})
+                                **{name: _count(name) - k[name]
+                                   for name in PROVER_KERNELS}})
             return out
 
         runtime.prove_batch = counted
@@ -917,8 +1125,10 @@ def main():
 
     # timed phases run alone on the card; the production vdb sets (host-bound
     # set-up) overlap only the untimed recursion production and vdb set-up
-    phase_toolchain(card)
+    sass = phase_toolchain(card)
+    p1 = phase_probe(card)
     k1_err, k1_times = phase_k1(card)
+    k1m_err, k1m_times = phase_k1_merkle(card)
     k2_err, k2_times = phase_k2(card)
     k2c_err, k2c_times = phase_k2c(card)
     light, production = phase_tree_nodes(card, dev, launches)
@@ -944,28 +1154,37 @@ def main():
 
     k2_shape = f"iNTT (16*{WIRES}, 2^13)"
     k2c_shape = f"LDE (16*{WIRES}, 2^16)"
+    print(f"K1 launches in the {VDB_ROWS}-row update: {counts['K1']} "
+          f"({counts['K1 entries']}; 4013 before the Merkle entries)")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
+        {"name": "probe_ops", "route": "cuda",
+         "source": "mp2_tpu_torch/csrc/probe_ops.cu",
+         "replaces": "tools/probe_ops.py:61", "library_ms": None,
+         **p1, "launches_by_path": {"P1 probe": p1["launches"], **by_path("P1")}},
         {"name": "poseidon2_permute_planar", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/poseidon2.cu",
          "replaces": "mp2_tpu/ops/poseidon2_pallas.py:114",
-         "launches": counts["K1"], "max_abs_err": k1_err,
+         "launches": counts["K1"], "max_abs_err": max(k1_err, k1m_err),
          **k1_times[1 << 20], "library_ms": None, "lanes": 1 << 20,
          "launches_by_path": by_path("K1"),
-         "by_lanes": {str(k): v for k, v in k1_times.items()}},
+         "launches_by_entry_and_path": by_path("K1 entries"),
+         "by_lanes": {str(k): v for k, v in k1_times.items()},
+         "merkle_entries": k1m_times, "sass": sass["K1"]},
         {"name": "ntt_rows", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/ntt.cu",
          "replaces": "mp2_tpu/ops/ntt_pallas.py:237",
          "launches": counts["K2"], "max_abs_err": k2_err,
          **k2_times[k2_shape], "library_ms": None, "shape": k2_shape,
-         "launches_by_path": by_path("K2"), "by_shape": k2_times},
+         "launches_by_path": by_path("K2"), "by_shape": k2_times, "sass": sass["K2"]},
         {"name": "ntt_four_step_t", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/ntt_t.cu",
          "replaces": "mp2_tpu/ops/ntt_pallas.py:526",
          "launches": counts["K2c"], "max_abs_err": k2c_err,
          **k2c_times[k2c_shape], "library_ms": None, "shape": k2c_shape,
-         "launches_by_path": by_path("K2c"), "by_shape": k2c_times},
+         "launches_by_path": by_path("K2c"), "by_shape": k2c_times,
+         "sass": sass["K2c"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -22,7 +22,7 @@ from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.prover.config import CircuitConfig
 from mp2_tpu_torch.prover.fri import FriConfig
 from mp2_tpu_torch.prover.merkle import MerkleTree
-from mp2_tpu_torch.prover.prove import CircuitData, _tree_leaves
+from mp2_tpu_torch.prover.prove import CircuitData
 
 
 def _config_from(cfg) -> CircuitConfig:
@@ -82,6 +82,6 @@ def circuit_data_from_numpy(
     data.fixed_lde = gl.from_u64(np.asarray(fixed_lde, dtype=np.uint64), device)
     levels = [gl.from_u64(np.asarray(l, dtype=np.uint64), device) for l in fixed_levels]
     cap_h = min(cfg.fri.cap_height, data.log_n)
-    data.fixed_tree = MerkleTree.from_levels(_tree_leaves(data.fixed_lde), levels, cap_h)
+    data.fixed_tree = MerkleTree.from_levels(data.fixed_lde, levels, cap_h)
     data.set_digest()
     return data

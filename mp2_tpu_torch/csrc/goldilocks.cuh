@@ -7,7 +7,11 @@
 // product is `a * b` plus `__umul64hi(a, b)`, and reduction uses
 // 2^64 = 2^32 - 1 and 2^96 = -1 (mod p).
 //
-// All functions take and return canonical values in [0, p).
+// Two dialects.  The canonical functions (canon, add, sub, reduce128, mul)
+// take and return values in [0, p).  The lazy functions (*_lazy,
+// mul_pow2*) take ANY u64 and return a u64 congruent mod p, not necessarily
+// below p: a kernel chains them and calls canon once per output word, as the
+// TPU kernels' lazy set did (gl_u32.py:96-217).  Each states its ranges.
 #pragma once
 
 #include <stdint.h>
@@ -35,8 +39,6 @@ __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
   return (a < b) ? d - EPS : d;
 }
 
-__device__ __forceinline__ uint64_t dbl(uint64_t a) { return add(a, a); }
-
 // lo + hi * 2^64 mod p.
 __device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
   uint64_t hi_lo = hi & 0xFFFFFFFFull;
@@ -53,11 +55,111 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
   return reduce128(a * b, __umul64hi(a, b));
 }
 
-__device__ __forceinline__ uint64_t exp7(uint64_t x) {
-  uint64_t x2 = mul(x, x);
-  uint64_t x3 = mul(x2, x);
-  uint64_t x4 = mul(x2, x2);
-  return mul(x4, x3);
+// ---------------------------------------------------------------------------
+// Lazy dialect: in [0, 2^64), out [0, 2^64), congruent mod p.
+// ---------------------------------------------------------------------------
+
+// a + b.  A carry out of 2^64 is worth EPS; a second carry leaves s < EPS,
+// so the second fold cannot carry again.
+__device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
+  uint64_t s = a + b;
+  const uint64_t c = (s < a) ? EPS : 0;
+  s += c;
+  return s + ((s < c) ? EPS : 0);
+}
+
+// a - b.  A borrow of 2^64 is worth -EPS; a second borrow leaves
+// d >= 2^64 - EPS, so the second fold cannot borrow again.
+__device__ __forceinline__ uint64_t sub_lazy(uint64_t a, uint64_t b) {
+  const uint64_t d = a - b;
+  const uint64_t w = (a < b) ? EPS : 0;
+  const uint64_t e = d - w;
+  return e - ((d < w) ? EPS : 0);
+}
+
+// lo + hi * 2^64 for any lo, hi: reduce128 without its final canon.
+__device__ __forceinline__ uint64_t reduce128_lazy(uint64_t lo, uint64_t hi) {
+  const uint64_t hi_lo = hi & 0xFFFFFFFFull;
+  const uint64_t hi_hi = hi >> 32;
+  uint64_t t0 = lo - hi_hi;            // + hi_hi * 2^96 = - hi_hi
+  t0 -= (lo < hi_hi) ? EPS : 0;        // borrow: t0 >= 2^64 - 2^32, no re-borrow
+  const uint64_t t1 = (hi_lo << 32) - hi_lo;  // hi_lo * EPS, < 2^64 - 2^33 + 2
+  const uint64_t s = t0 + t1;
+  return s + ((s < t1) ? EPS : 0);     // carry: s < t1, so s + EPS < 2^64
+}
+
+// The 128-bit product a * b as (lo, hi).  The 64-bit multiply and
+// __umul64hi compile to fewer instructions than a schoolbook on 32-bit
+// limbs written out here (CUDA 12.9).
+__device__ __forceinline__ void mul128(uint64_t a, uint64_t b, uint64_t& lo,
+                                       uint64_t& hi) {
+  lo = a * b;
+  hi = __umul64hi(a, b);
+}
+
+// a * b for any a, b (the product is below 2^128).
+__device__ __forceinline__ uint64_t mul_lazy(uint64_t a, uint64_t b) {
+  uint64_t lo, hi;
+  mul128(a, b, lo, hi);
+  return reduce128_lazy(lo, hi);
+}
+
+// a * a with three 32x32 -> 64 limb products instead of four: the cross
+// term lo*hi is formed once and doubled by a shift (gl_u32.sq_lazy).
+__device__ __forceinline__ uint64_t sqr_lazy(uint64_t a) {
+  const uint32_t al = (uint32_t)a, ah = (uint32_t)(a >> 32);
+  const uint64_t ll = (uint64_t)al * al, lh = (uint64_t)al * ah,
+                 hh = (uint64_t)ah * ah;
+  const uint64_t lo = ll + (lh << 33);             // 2 * lh * 2^32, low bits
+  const uint64_t hi = hh + (lh >> 31) + (lo < ll);  // its high bits and the carry
+  return reduce128_lazy(lo, hi);
+}
+
+// x^7 for any x, lazy intermediates: 2 squarings, 2 products.
+__device__ __forceinline__ uint64_t exp7_lazy(uint64_t x) {
+  const uint64_t x2 = sqr_lazy(x);
+  const uint64_t x3 = mul_lazy(x2, x);
+  const uint64_t x4 = sqr_lazy(x2);
+  return mul_lazy(x4, x3);
+}
+
+// x * 2^e for any x and e in [0, 96), by shifts: no multiply.  Above 63 the
+// product first takes one factor 2^32 (its reduce has hi < 2^32), so the
+// 128-bit shift below stays under 64.  Branch-free (selects).
+__device__ __forceinline__ uint64_t mul_pow2_lt96(uint64_t x, uint32_t e) {
+  const bool big = e >= 64;
+  x = big ? reduce128_lazy(x << 32, x >> 32) : x;
+  e = big ? e - 32 : e;
+  return reduce128_lazy(x << e, (x >> 1) >> (63 - e));
+}
+
+// x * 2^e for any x and e in [0, 192): 2^96 = -1 (mod p), so e >= 96
+// negates.  2 has order 192, and every root of unity of order <= 64 is a
+// power of 2, so these are the twiddles of an NTT's first six stages.  On
+// the H100 it costs about two products (the P1 probe), so the NTT stages
+// multiply from tables instead.
+__device__ __forceinline__ uint64_t mul_pow2_lazy(uint64_t x, uint32_t e) {
+  const bool neg = e >= 96;
+  const uint64_t r = mul_pow2_lt96(x, neg ? e - 96 : e);
+  const uint64_t nr = sub_lazy(0, r);
+  return neg ? nr : r;
+}
+
+// x * 2^e for any x and e in [0, 192), as mul_pow2_lazy but by branches
+// where that takes selects: a warp whose threads share e runs one path of
+// one or two reductions, as an NTT stage would whose twiddle is the same
+// across the warp.  Still ~1.8 products on the H100 (the P1 probe's
+// mul_pow2_uniform).
+__device__ __forceinline__ uint64_t mul_pow2_uniform_lazy(uint64_t x, uint32_t e) {
+  const bool neg = e >= 96;
+  if (neg) e -= 96;
+  if (e >= 64) {
+    x = reduce128_lazy(x << 32, x >> 32);
+    e -= 32;
+  }
+  if (e != 0) x = reduce128_lazy(x << e, x >> (64 - e));
+  if (neg) x = sub_lazy(0, x);
+  return x;
 }
 
 }  // namespace gl

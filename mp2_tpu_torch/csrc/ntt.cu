@@ -29,12 +29,13 @@
 // uint64_t (2^14 * 8 B = 128 KB at the largest n, above the 48 KB default,
 // so the launch opts in with cudaFuncSetAttribute).  Loads are coalesced
 // global reads written to the bit-reversed shared slot; 512 threads walk
-// the butterflies of a stage, __syncthreads() between stages; the stage
-// twiddles are one table of n - 1 values in device memory (stage s at
-// offset 2^(s-1) - 1), read contiguously by a warp.  The Pallas kernel's
+// the stages of csrc/ntt_stages.cuh (lazy, radix 4; __syncthreads()
+// between passes, each thread along a row); the stage twiddles are one
+// table of n - 1 values in device memory (stage s at offset 2^(s-1) - 1).
+// The epilogue canonicalises.  The Pallas kernel's
 // lane rolls, swap-rolls, packed pairs, lazy u32-limb dialect and TILE_R
-// tiles are TPU layout choices and are not carried over.  Radix-4/8 stages,
-// register-resident sub-transforms and TMA loads are later work.
+// tiles are TPU layout choices and are not carried over.  Small-n batched
+// rows, register-resident sub-transforms and TMA loads are later work.
 //
 // Tensors are int64 bit patterns of u64 values (PyTorch has no uint64 ops);
 // the kernel reads them as uint64_t and reduces each input mod p on load.
@@ -75,16 +76,16 @@ ntt_rows_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
   }
   __syncthreads();
 
-  ntt::dit_stages(sh, nrows, log_n, n, stage_tw);
+  ntt::dit_stages<false>(sh, nrows, 0, log_n, n, stage_tw);
 
   for (int e = threadIdx.x; e < elems; e += blockDim.x) {
     uint64_t v = sh[e];
     if (mid_tw != nullptr) {
       const long long r = (row0 + (e >> log_n)) % mid_rows;
-      v = gl::mul(v, mid_tw[(r << log_n) + (e & (n - 1))]);
+      v = gl::mul_lazy(v, mid_tw[(r << log_n) + (e & (n - 1))]);
     }
-    if (scale != 0) v = gl::mul(v, scale);
-    dst[e] = v;
+    if (scale != 0) v = gl::mul_lazy(v, scale);
+    dst[e] = gl::canon(v);
   }
 }
 

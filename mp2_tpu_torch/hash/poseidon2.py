@@ -19,11 +19,12 @@ from mp2_tpu_torch.hash.constants import RATE, WIDTH
 from mp2_tpu_torch.ops.poseidon2_cuda import permute_planar
 
 
-def permute_lanes(lanes: torch.Tensor) -> torch.Tensor:
+def permute_lanes(lanes: torch.Tensor, permute=None) -> torch.Tensor:
     """Permutation on a planar state of shape (12, ...): lane i is
-    lanes[i].  The prover's entry (sponge lanes, challenger, grinding)."""
+    lanes[i].  The prover's entry (sponge lanes, challenger, grinding).
+    `permute` replaces K1's entry (a plain twin passes its own)."""
     flat = lanes.reshape(WIDTH, -1).contiguous()
-    return permute_planar(flat).reshape(lanes.shape)
+    return (permute or permute_planar)(flat).reshape(lanes.shape)
 
 
 def permute(state: torch.Tensor) -> torch.Tensor:
@@ -32,7 +33,8 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     return permute_planar(planar).T.reshape(state.shape)
 
 
-def hash_n_to_m_no_pad(inputs: torch.Tensor, num_outputs: int) -> torch.Tensor:
+def hash_n_to_m_no_pad(inputs: torch.Tensor, num_outputs: int,
+                       permute=None) -> torch.Tensor:
     """Sponge over (..., n) -> (..., num_outputs): overwrite-mode absorption
     in chunks of RATE, no padding (plonky2 semantics, as the host model)."""
     n = inputs.shape[-1]
@@ -40,29 +42,29 @@ def hash_n_to_m_no_pad(inputs: torch.Tensor, num_outputs: int) -> torch.Tensor:
     for i in range(0, n, RATE):
         k = min(RATE, n - i)
         chunk = torch.movedim(inputs[..., i : i + k], -1, 0)
-        state = permute_lanes(torch.cat([chunk, state[k:]]))
+        state = permute_lanes(torch.cat([chunk, state[k:]]), permute)
     outputs = []
     while True:
         for j in range(RATE):
             outputs.append(state[j])
             if len(outputs) == num_outputs:
                 return torch.stack(outputs, dim=-1)
-        state = permute_lanes(state)
+        state = permute_lanes(state, permute)
 
 
-def hash_no_pad(inputs: torch.Tensor) -> torch.Tensor:
-    return hash_n_to_m_no_pad(inputs, 4)
+def hash_no_pad(inputs: torch.Tensor, permute=None) -> torch.Tensor:
+    return hash_n_to_m_no_pad(inputs, 4, permute)
 
 
-def hash_or_noop(inputs: torch.Tensor) -> torch.Tensor:
+def hash_or_noop(inputs: torch.Tensor, permute=None) -> torch.Tensor:
     """plonky2 semantics: <= 4 inputs are returned zero-padded (no hashing)."""
     n = inputs.shape[-1]
     if n <= 4:
         pad = gl.zeros(tuple(inputs.shape[:-1]) + (4 - n,), inputs.device)
         return torch.cat([inputs, pad], dim=-1)
-    return hash_no_pad(inputs)
+    return hash_no_pad(inputs, permute)
 
 
-def two_to_one(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+def two_to_one(left: torch.Tensor, right: torch.Tensor, permute=None) -> torch.Tensor:
     """(..., 4) x (..., 4) -> (..., 4)."""
-    return hash_no_pad(torch.cat([left, right], dim=-1))
+    return hash_no_pad(torch.cat([left, right], dim=-1), permute)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from dataclasses import dataclass
@@ -24,6 +25,7 @@ from typing import Optional, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+NVCC_TIMEOUT_S = 600  # a build that takes longer raises instead of hanging
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +48,27 @@ def nvcc() -> str:
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (CUDA_HOME); cannot build a kernel")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def sass_counts(path: Path) -> dict:
+    """{kernel symbol: (SASS instructions, integer multiplies)} of a built
+    library, from `cuobjdump -sass`; the multiplies are the IMAD family
+    without the moves, shifts and adds the compiler also issues as IMAD.
+    Static counts: the code as compiled, not the instructions a thread
+    runs where the kernel loops."""
+    out = subprocess.run([os.path.join(os.path.dirname(nvcc()), "cuobjdump"), "-sass",
+                          str(path)], capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = [0, 0]
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[name][0] += 1
+            counts[name][1] += (" IMAD" in line and not any(
+                alu in line for alu in ("IMAD.MOV", "IMAD.SHL", "IMAD.IADD")))
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def build_library(name: str, sources: Sequence[str],
@@ -72,7 +95,11 @@ def build_library(name: str, sources: Sequence[str],
         cmd = [nvcc(), *flags, "-I", str(out_dir), "-I", str(CSRC), "-o", str(tmp),
                *(str(CSRC / s) for s in sources if s.endswith(".cu"))]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            raise RuntimeError(f"nvcc did not finish {name} within {NVCC_TIMEOUT_S} s") from e
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:

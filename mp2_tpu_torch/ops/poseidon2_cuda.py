@@ -1,14 +1,24 @@
-"""K1: the batched Poseidon2 permutation, as a CUDA kernel and its plain twin.
+"""K1: the batched Poseidon2 permutation and the Merkle entries built on it,
+as CUDA kernels and their plain twins.
 
 Replaces `mp2_tpu/ops/poseidon2_pallas.py::_kernel` (the Pallas TPU kernel).
 The kernel source is `csrc/poseidon2.cu` on `csrc/goldilocks.cuh`; its header
-comment says what bounds it on Hopper and how the design answers that.
+comment says what bounds it on Hopper (integer instruction issue) and how the
+design answers that (lazy arithmetic, wide linear-layer sums).
 
-`permute_planar` is the one entry: a (12, n) int64 planar state in, the
-permuted state out.  On a CPU tensor it runs `permute_planar_plain`, the
-same permutation written with the port's torch field ops.  On a CUDA tensor
-it launches the kernel or raises; it never falls back to the plain version.
-`permute_planar.launches` counts kernel launches.
+Three entries, each with its plain twin in this module:
+  * `permute_planar(x)`: a (12, n) int64 planar state in, the permuted state
+    out (challenger, PI hash, grinding);
+  * `hash_leaves(lde_nat)`: a natural-order LDE (B, C, m) in, the Merkle leaf
+    digests (B, m, 4) out, in the bit-reversed leaf order of the tree
+    (hash_or_noop of each column, one launch);
+  * `merkle_levels(digests, cap_height)`: leaf digests (B, m, 4) in, every
+    level above them up to the cap out (a launch per 9 levels: two for
+    every tree the prover builds).
+On a CPU tensor each runs its plain twin, written with the port's torch
+field ops.  On a CUDA tensor it launches its kernel or raises; it never
+falls back to the plain version.  Each entry's `.launches` counts its kernel
+launches; `launches()` is their K1 total.
 
 Build: at first use, `ops/_nvcc.build_library` compiles the kernel for
 sm_90a into a shared library with a plain C entry under
@@ -27,6 +37,9 @@ import torch
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.hash.constants import ROUNDS_F, ROUNDS_P, WIDTH, load_table
 from mp2_tpu_torch.ops._nvcc import Built, build_library
+from mp2_tpu_torch.ops.ntt_cuda import _bitrev_t
+
+LEVELS_PER_LAUNCH = 9  # a block hashes 2^9 digests into 9 levels
 
 _SOURCES = ("poseidon2.cu", "goldilocks.cuh")
 
@@ -57,10 +70,18 @@ def build() -> Built:
     """Compile (once per source hash) and load the kernel library."""
     built = build_library("mp2_poseidon2", _SOURCES,
                           header=("poseidon2_tables.h", _tables_header()))
-    fn = built.lib.mp2_poseidon2_permute_planar
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = built.lib
+    lib.mp2_poseidon2_permute_planar.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    lib.mp2_poseidon2_hash_leaves.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.mp2_poseidon2_merkle_levels.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.mp2_poseidon2_permute_planar, lib.mp2_poseidon2_hash_leaves,
+               lib.mp2_poseidon2_merkle_levels):
+        fn.restype = ctypes.c_int
     return built
 
 
@@ -114,9 +135,47 @@ def permute_planar_plain(x: torch.Tensor) -> torch.Tensor:
     return st
 
 
+def hash_leaves_plain(lde_nat: torch.Tensor, permute=None) -> torch.Tensor:
+    """(B, C, m) natural order -> (B, m, 4): the plain version of the leaf
+    kernel, the composition the prover ran before it: bit-reverse the
+    points, transpose to leaves (B, m, C), sponge each leaf (hash_or_noop)
+    by `permute` (default: the plain permutation)."""
+    from mp2_tpu_torch.hash import poseidon2 as p2
+
+    m = lde_nat.shape[-1]
+    leaves = torch.index_select(lde_nat, -1, _bitrev_t(m.bit_length() - 1, lde_nat.device))
+    return p2.hash_or_noop(leaves.transpose(1, 2), permute or permute_planar_plain)
+
+
+def merkle_levels_plain(digests: torch.Tensor, cap_height: int, permute=None) -> list:
+    """(B, m, 4) leaf digests -> the levels above them, [(B, m/2, 4), ...,
+    (B, 2^cap_height, 4)]: the plain version of the levels kernel, one
+    two_to_one over a whole level per step by `permute` (default: the plain
+    permutation)."""
+    from mp2_tpu_torch.hash import poseidon2 as p2
+
+    levels = []
+    while digests.shape[1] > (1 << cap_height):
+        digests = p2.two_to_one(digests[:, 0::2], digests[:, 1::2],
+                                permute or permute_planar_plain)
+        levels.append(digests)
+    return levels
+
+
 # ---------------------------------------------------------------------------
-# the wrapper
+# the wrappers
 # ---------------------------------------------------------------------------
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _check_cuda(x: torch.Tensor, what: str):
+    if x.device.type != "cuda":
+        raise ValueError(f"no Poseidon2 kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"the {what} kernel takes a contiguous tensor")
 
 
 def permute_planar(x: torch.Tensor) -> torch.Tensor:
@@ -138,12 +197,87 @@ def permute_planar(x: torch.Tensor) -> torch.Tensor:
         return out
     fn = build().lib.mp2_poseidon2_permute_planar
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), out.data_ptr(), n, stream)
+        rc = fn(x.data_ptr(), out.data_ptr(), n, _stream(x))
     if rc != 0:
         raise RuntimeError(f"Poseidon2 kernel launch failed: CUDA error {rc}")
     permute_planar.launches += 1
     return out
 
 
+def hash_leaves(lde_nat: torch.Tensor) -> torch.Tensor:
+    """(B, C, m) int64 natural-order LDE, m a power of two -> (B, m, 4) leaf
+    digests in bit-reversed leaf order: row i holds hash_or_noop of the
+    points at rev(i) (the leaves of `_leaves_batched` in the reference).
+
+    CPU tensor: the plain version.  CUDA tensor: one kernel launch on the
+    current stream, or an exception."""
+    if lde_nat.dtype != torch.int64 or lde_nat.dim() != 3:
+        raise ValueError(f"expected a (B, C, m) int64 tensor, got {lde_nat.dtype} "
+                         f"{tuple(lde_nat.shape)}")
+    B, C, m = lde_nat.shape
+    log_m = m.bit_length() - 1
+    if C == 0 or m == 0 or 1 << log_m != m:
+        raise ValueError(f"leaf count {m} is not a power of two, or no columns")
+    if lde_nat.device.type == "cpu":
+        return hash_leaves_plain(lde_nat)
+    _check_cuda(lde_nat, "leaf-hash")
+    out = torch.empty((B, m, 4), dtype=torch.int64, device=lde_nat.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(lde_nat.device):
+        rc = build().lib.mp2_poseidon2_hash_leaves(
+            lde_nat.data_ptr(), out.data_ptr(), B, C, log_m, _stream(lde_nat))
+    if rc != 0:
+        raise RuntimeError(f"Poseidon2 leaf-hash kernel launch failed: CUDA error {rc}")
+    hash_leaves.launches += 1
+    return out
+
+
+def merkle_levels(digests: torch.Tensor, cap_height: int) -> list:
+    """(B, m, 4) int64 leaf digests, m a power of two -> the levels above
+    them, [(B, m/2, 4), ..., (B, 2^cap_height, 4)] (empty when m is the cap
+    size), each level's node i = two_to_one(node 2i, node 2i + 1).
+
+    CPU tensor: the plain version.  CUDA tensor: one kernel launch per
+    LEVELS_PER_LAUNCH levels on the current stream, or an exception.  The
+    levels are views of one buffer."""
+    if digests.dtype != torch.int64 or digests.dim() != 3 or digests.shape[2] != 4:
+        raise ValueError(f"expected a (B, m, 4) int64 tensor, got {digests.dtype} "
+                         f"{tuple(digests.shape)}")
+    B, m, _ = digests.shape
+    log_m = m.bit_length() - 1
+    if m == 0 or 1 << log_m != m or not 0 <= cap_height <= log_m:
+        raise ValueError(f"{m} digests do not reduce to a cap of 2^{cap_height}")
+    if digests.device.type == "cpu":
+        return merkle_levels_plain(digests, cap_height)
+    _check_cuda(digests, "Merkle-level")
+    sizes = [m >> j for j in range(1, log_m - cap_height + 1)]
+    buf = torch.empty(B * 4 * sum(sizes), dtype=torch.int64, device=digests.device)
+    levels, off = [], 0
+    for size in sizes:
+        levels.append(buf[off:off + B * size * 4].view(B, size, 4))
+        off += B * size * 4
+    fn = build().lib.mp2_poseidon2_merkle_levels
+    src, done = digests, 0
+    with torch.cuda.device(digests.device):
+        while done < len(sizes):
+            k = min(LEVELS_PER_LAUNCH, len(sizes) - done)
+            rc = fn(src.data_ptr(), levels[done].data_ptr(), B, log_m - done, k,
+                    _stream(digests))
+            if rc != 0:
+                raise RuntimeError(f"Poseidon2 Merkle-level kernel launch failed: "
+                                   f"CUDA error {rc}")
+            merkle_levels.launches += 1
+            done += k
+            src = levels[done - 1]
+    return levels
+
+
 permute_planar.launches = 0
+hash_leaves.launches = 0
+merkle_levels.launches = 0
+
+
+def launches() -> int:
+    """K1 launches so far, all entries together."""
+    return permute_planar.launches + hash_leaves.launches + merkle_levels.launches

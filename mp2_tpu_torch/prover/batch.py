@@ -61,11 +61,6 @@ def _weighted_sum(terms: torch.Tensor, weights: torch.Tensor, axis: int) -> torc
     return acc
 
 
-def _leaves_batched(lde_nat: torch.Tensor) -> torch.Tensor:
-    """(B, C, big) natural order -> leaves (B, big, C) in bit-reversed order."""
-    return fri_mod.bit_reverse(lde_nat).transpose(1, 2)
-
-
 def _prefix_prod(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix product along the last axis (log-depth)."""
     n = x.shape[-1]
@@ -282,11 +277,14 @@ def _grind_from_state(state: torch.Tensor, buffer: torch.Tensor,
     return out
 
 
-def _gather(leaves, levels, idx):
-    """Opened rows and Merkle siblings: leaves (B, m, w), levels
-    [(B, m_l, 4)], idx (B, q) -> (B, q, w), (B, q, depth, 4)."""
+def _gather(tree, idx):
+    """Opened rows and Merkle siblings of a tree (a BatchedMerkleTree, or a
+    MerkleTree shared by the batch) at idx (B, q) -> (B, q, w),
+    (B, q, depth, 4)."""
     B, q = idx.shape
-    lf = torch.gather(leaves, 1, idx[..., None].expand(B, q, leaves.shape[2]))
+    lf = tree.rows(idx)
+    levels = [l.expand(B, -1, -1) if l.dim() == 2 else l
+              for l in tree.digest_levels[:-1]]
     sibs = []
     i = idx
     for lvl in levels:
@@ -335,7 +333,7 @@ def prove_batch(
     wit = gl.from_u64(np.asarray(witnesses, dtype=np.uint64), dev)  # (B, n, W)
     wire_coeffs = ntt.intt(wit.transpose(1, 2).contiguous())  # (B, W, n)
     wire_lde = ntt.lde(wire_coeffs, rate, SHIFT)
-    wires_tree = BatchedMerkleTree(_leaves_batched(wire_lde), cap_height=cap_h)
+    wires_tree = BatchedMerkleTree.from_lde(wire_lde, cap_height=cap_h)
     ch.observe(wires_tree.cap.reshape(B, -1))
     betas = torch.stack(ch.get_n_challenges(nc))  # (nc, B)
     gammas = torch.stack(ch.get_n_challenges(nc))
@@ -343,7 +341,7 @@ def prove_batch(
     # --- permutation columns ---
     zs_coeffs = ntt.intt(_compute_zs_batched(data, wit, betas, gammas))
     zs_lde = ntt.lde(zs_coeffs, rate, SHIFT)
-    zs_tree = BatchedMerkleTree(_leaves_batched(zs_lde), cap_height=cap_h)
+    zs_tree = BatchedMerkleTree.from_lde(zs_lde, cap_height=cap_h)
     ch.observe(zs_tree.cap.reshape(B, -1))
     alphas = torch.stack(ch.get_n_challenges(nc))
 
@@ -351,7 +349,7 @@ def prove_batch(
     quo_vals = _quotient_batched(data, wire_lde, zs_lde, betas, gammas, alphas, pi_h)
     quo_coeffs = ntt.coset_intt(quo_vals, SHIFT).reshape(B, nc * qk, n)
     quo_lde = ntt.lde(quo_coeffs, rate, SHIFT)
-    quo_tree = BatchedMerkleTree(_leaves_batched(quo_lde), cap_height=cap_h)
+    quo_tree = BatchedMerkleTree.from_lde(quo_lde, cap_height=cap_h)
     ch.observe(quo_tree.cap.reshape(B, -1))
     zeta = ch.get_extension_challenge()
 
@@ -395,22 +393,14 @@ def prove_batch(
         ch.get_n_challenges(cfg.fri.num_query_rounds), dim=1
     ) & (big - 1)  # (B, q); big is a power of two
 
-    def shared(t):  # the fixed tree, seen by every batch element
-        return t[None].expand(B, -1, -1)
-
-    fixed = data.fixed_tree
-    oracles = {
-        "fixed": (shared(fixed.leaves), [shared(l) for l in fixed.digest_levels[:-1]]),
-        "wires": (wires_tree.leaves, wires_tree.digest_levels[:-1]),
-        "zs": (zs_tree.leaves, zs_tree.digest_levels[:-1]),
-        "quo": (quo_tree.leaves, quo_tree.digest_levels[:-1]),
-    }
-    q_out = {k: _gather(leaves, levels, idx) for k, (leaves, levels) in oracles.items()}
+    oracles = {"fixed": data.fixed_tree, "wires": wires_tree, "zs": zs_tree,
+               "quo": quo_tree}
+    q_out = {k: _gather(tree, idx) for k, tree in oracles.items()}
     folds = []
     i = idx
     for t in fold_trees:
         i = i >> 1
-        folds.append(_gather(t.leaves, t.digest_levels[:-1], i))
+        folds.append(_gather(t, i))
 
     # ---- one transfer of everything the serialized proofs need ----
     host = gl.to_u64

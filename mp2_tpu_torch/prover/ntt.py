@@ -12,6 +12,11 @@ the CPU its plain twin, K2's plain passes with torch transposes.  The
 reference gates its kernel at 512 points; on the card the gate is dropped,
 since an eager plain stage costs dozens of launches (a field multiply alone
 is ~30).
+
+`lde` and `coset_intt` from 2^15 points are K2c's own entries (`lde_t`,
+`coset_intt_t`): the zero padding, the coset factors and the iNTT's scale
+ride inside the kernel's two passes, where below 2^15 they are the torch
+compositions around K2 written out here.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from mp2_tpu_torch.ops.ntt_cuda import (  # noqa: F401  (re-exported tables)
     _root_of_unity,
     ntt_rows,
 )
-from mp2_tpu_torch.ops.ntt_t_cuda import ntt_four_step_t
+from mp2_tpu_torch.ops.ntt_t_cuda import coset_intt_t, lde_t, ntt_four_step_t
 
 
 @lru_cache(maxsize=None)
@@ -73,7 +78,10 @@ def coset_ntt(coeffs: torch.Tensor, shift: int = gl.MULTIPLICATIVE_GROUP_GENERAT
 
 
 def coset_intt(evals: torch.Tensor, shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR):
+    """Coefficients from evaluations on shift*H (plonky2's coset_ifft)."""
     n = evals.shape[-1]
+    if n.bit_length() - 1 > MAX_LOG_N:
+        return coset_intt_t(evals.view(-1, n), shift).view(evals.shape)
     return gl.mul(intt(evals), _power_t(pow(shift, P - 2, P), n, evals.device))
 
 
@@ -81,5 +89,8 @@ def lde(coeffs: torch.Tensor, rate_bits: int,
         shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR) -> torch.Tensor:
     """Low-degree extension: zero-pad to n*2^rate_bits, evaluate on shift*H."""
     n = coeffs.shape[-1]
-    pad = gl.zeros(tuple(coeffs.shape[:-1]) + ((n << rate_bits) - n,), coeffs.device)
+    big = n << rate_bits
+    if big.bit_length() - 1 > MAX_LOG_N:
+        return lde_t(coeffs.view(-1, n), rate_bits, shift).view(coeffs.shape[:-1] + (big,))
+    pad = gl.zeros(tuple(coeffs.shape[:-1]) + (big - n,), coeffs.device)
     return coset_ntt(torch.cat([coeffs, pad], dim=-1), shift)

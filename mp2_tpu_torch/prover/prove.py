@@ -156,7 +156,7 @@ class CircuitData:
         vals = gl.from_u64(cols, self.device)
         self.fixed_coeffs = ntt.intt(vals)
         self.fixed_lde = ntt.lde(self.fixed_coeffs, cfg.fri.rate_bits, SHIFT)
-        self.fixed_tree = MerkleTree(_tree_leaves(self.fixed_lde), cap_height=cap_h)
+        self.fixed_tree = MerkleTree.from_lde(self.fixed_lde, cap_height=cap_h)
         self.set_digest()
 
     def set_digest(self):
@@ -249,11 +249,6 @@ class CircuitData:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
-
-
-def _tree_leaves(lde_nat: torch.Tensor) -> torch.Tensor:
-    """(C, 8n) natural -> bitrev -> leaves (8n, C)."""
-    return fri_mod.bit_reverse(lde_nat).T.contiguous()
 
 
 @lru_cache(maxsize=None)

@@ -1,4 +1,4 @@
-"""K1, K2, K2c and the batched prover on a CUDA card.  These tests skip where there is
+"""K1, K2, K2c, P1 and the batched prover on a CUDA card.  These tests skip where there is
 no card.  The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
@@ -16,6 +16,7 @@ from mp2_tpu_torch.hash import poseidon2_host as p2h
 from mp2_tpu_torch.ops import ntt_cuda as N
 from mp2_tpu_torch.ops import ntt_t_cuda as T
 from mp2_tpu_torch.ops import poseidon2_cuda as K
+from mp2_tpu_torch.ops import probe_cuda as PC
 from mp2_tpu_torch.prover import ntt
 from mp2_tpu_torch.prover.batch import prove_batch
 from mp2_tpu_torch.prover.config import test_config
@@ -104,14 +105,60 @@ def test_four_step_kernel_refuses_sizes_it_does_not_take(cuda, log_n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch, cols, log_m, cap", [(2, 136, 10, 4), (1, 3, 6, 0),
+                                                      (3, 12, 12, 2), (1, 9, 20, 0)])
+def test_merkle_entries_match_plain(cuda, batch, cols, log_m, cap):
+    """K1's leaf-hash and level entries against their plain twins, bit for
+    bit; the levels of 2^20 leaves take three launches."""
+    rng = np.random.default_rng(log_m)
+    lde = gl.from_u64(rng.integers(0, gl.P, size=(batch, cols, 1 << log_m),
+                                   dtype=np.uint64), cuda)
+    before = K.launches()
+    digests = K.hash_leaves(lde)
+    levels = K.merkle_levels(digests, cap)
+    assert K.launches() == before + 1 + -(-(log_m - cap) // K.LEVELS_PER_LAUNCH)
+    if log_m <= 12:
+        assert torch.equal(digests, K.hash_leaves_plain(lde))
+    want = K.merkle_levels_plain(digests, cap)
+    assert all(torch.equal(a, b) for a, b in zip(levels, want, strict=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_big, rate", [(6, 1), (15, 3), (16, 3), (19, 3), (20, 1)])
+def test_lde_and_coset_intt_kernels_match_plain(cuda, log_big, rate):
+    """K2c's LDE and coset-iNTT entries against their plain twins."""
+    rng = np.random.default_rng(log_big)
+    coeffs = gl.from_u64(rng.integers(0, gl.P, size=(3, 1 << (log_big - rate)),
+                                      dtype=np.uint64), cuda)
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    before = T.ntt_four_step_t.launches
+    evals = T.lde_t(coeffs, rate, shift)
+    assert T.ntt_four_step_t.launches == before + 2
+    assert torch.equal(evals, T.lde_t_plain(coeffs, rate, shift))
+    back = T.coset_intt_t(evals, shift)
+    assert torch.equal(back, T.coset_intt_t_plain(evals, shift))
+    assert torch.equal(back[:, :coeffs.shape[1]], coeffs) and not back[:, coeffs.shape[1]:].any()
+
+
+@pytest.mark.cuda
+def test_probe_kernel_matches_plain(cuda):
+    """P1: every op and chain length against its plain twin."""
+    a, b = PC.inputs(cuda, 1 << 12)
+    for op in PC.OPS:
+        for k in PC.ks(op):
+            assert torch.equal(PC.probe(op, k, a, b), PC.probe_plain(op, k, a, b)), (op, k)
+
+
+@pytest.mark.cuda
 def test_prove_batch_on_card_matches_golden(cuda):
     """B=2 tree-node proofs made on the card equal the JAX package's."""
     with open(GOLDEN) as f:
         golden = json.load(f)
     data, inputs = _build_tree_node(test_config(), cuda)
     wits, pis = tree_node_batch(data, inputs, golden["batch"], golden["seed"])
-    before = K.permute_planar.launches
+    before = (K.permute_planar.launches, K.hash_leaves.launches, K.merkle_levels.launches)
     proofs = prove_batch(data, wits, pis)
-    assert K.permute_planar.launches > before
+    after = (K.permute_planar.launches, K.hash_leaves.launches, K.merkle_levels.launches)
+    assert all(a > b for a, b in zip(after, before))
     assert [proof_sha256(proof_to_dict(p)) for p in proofs] == golden["proof_sha256"]
     assert all(verify(data, p) for p in proofs)

@@ -236,3 +236,70 @@ def test_four_step_t_wrapper_refuses_devices_without_the_kernel():
     with pytest.raises(ValueError, match="no four-step NTT kernel"):
         T.ntt_four_step_t(torch.zeros((2, 64), dtype=torch.int64, device="meta"), False)
 
+
+
+# ---------------------------------------------------------------------------
+# K2c's LDE and coset-iNTT entries (ops/ntt_t_cuda.lde_t, coset_intt_t)
+# ---------------------------------------------------------------------------
+
+SHIFT = gl.MULTIPLICATIVE_GROUP_GENERATOR
+
+
+@pytest.mark.parametrize("log_big, rate", [(6, 1), (8, 3), (10, 2)])
+def test_lde_and_coset_intt_twins_match_reference(log_big, rate):
+    """lde_t_plain against mp2_tpu.prover.ntt.lde (2^log_big points from
+    2^(log_big - rate) coefficients; the sizes span 2^6 to 2^10 and the
+    rates 1 to 3, one compiled reference shape each) and coset_intt_t_plain against its
+    coset_intt, both on the reference's default coset; the wrappers on a CPU
+    tensor are the twins and launch nothing."""
+    coeffs = _rand(900 + log_big, (2, 1 << (log_big - rate)))
+    want = jgl.to_u64(jntt.lde(jgl.from_u64(coeffs), rate, SHIFT))
+    c = gl.from_u64(coeffs, "cpu")
+    np.testing.assert_array_equal(gl.to_u64(T.lde_t_plain(c, rate, SHIFT)), want)
+    evals = _rand(950 + log_big, (2, 1 << log_big))
+    want_c = jgl.to_u64(jntt.coset_intt(jgl.from_u64(evals), SHIFT))
+    e = gl.from_u64(evals, "cpu")
+    np.testing.assert_array_equal(gl.to_u64(T.coset_intt_t_plain(e, SHIFT)), want_c)
+    before = T.ntt_four_step_t.launches
+    assert torch.equal(T.lde_t(c, rate, SHIFT), T.lde_t_plain(c, rate, SHIFT))
+    assert torch.equal(T.coset_intt_t(e, SHIFT), T.coset_intt_t_plain(e, SHIFT))
+    assert T.ntt_four_step_t.launches == before
+
+
+def test_prover_lde_and_coset_intt_take_the_entries_from_2_15():
+    """prover/ntt routes an LDE of 2^15 points and up, and a coset iNTT of
+    2^15 points and up, through K2c's entries (here their plain twins), and
+    keeps the K2 compositions below; the results are the same functions."""
+    coeffs = gl.from_u64(_rand(960, (1, 1 << 12)), "cpu")
+    calls = []
+    orig = (ntt.lde_t, ntt.coset_intt_t)
+    ntt.lde_t = lambda *a: calls.append("lde") or orig[0](*a)
+    ntt.coset_intt_t = lambda *a: calls.append("coset_intt") or orig[1](*a)
+    try:
+        big = ntt.lde(coeffs[None], 3, SHIFT)  # 2^15 points, a (1, 1, n) batch
+        back = ntt.coset_intt(big, SHIFT)
+        small = ntt.lde(coeffs[:, :1 << 10], 3, SHIFT)  # 2^13 points: K2's path
+    finally:
+        ntt.lde_t, ntt.coset_intt_t = orig
+    assert calls == ["lde", "coset_intt"]
+    assert big.shape == (1, 1, 1 << 15) and small.shape == (1, 1 << 13)
+    assert torch.equal(back[..., :1 << 12], coeffs[None])
+    assert not back[..., 1 << 12:].any()
+
+
+@pytest.mark.parametrize("call", [
+    lambda: T.lde_t(torch.zeros((2, 96), dtype=torch.int64), 1, SHIFT),  # not 2^k
+    lambda: T.lde_t(torch.zeros((2, 2, 64), dtype=torch.int64), 1, SHIFT),  # not (B, n)
+    lambda: T.coset_intt_t(torch.zeros((2, 64), dtype=torch.int32), SHIFT),
+])
+def test_lde_and_coset_intt_wrappers_refuse_shapes(call):
+    with pytest.raises(ValueError):
+        call()
+
+
+def test_lde_and_coset_intt_wrappers_refuse_devices_without_the_kernel():
+    x = torch.zeros((2, 1 << 12), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no four-step NTT kernel"):
+        T.lde_t(x, 3, SHIFT)
+    with pytest.raises(ValueError, match="no four-step NTT kernel"):
+        T.coset_intt_t(x, SHIFT)

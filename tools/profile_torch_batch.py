@@ -11,10 +11,12 @@ one more batch with `torch.profiler` and prints one JSON line per shape:
   device_events    kernels and copies the card ran for the batch
   device_busy_ms   their summed device time
   idle_share       1 - busy / the median unprofiled wall
-  k1_ms, k1_events the Poseidon2 kernel's share of the device time
+  k1_ms, k1_events the Poseidon2 kernels' share of the device time (the
+                   permutation, the Merkle leaf hash and the Merkle levels)
   k2_ms, k2_events the NTT kernel's share
   k2c_ms, k2c_events the four-step NTT kernel's share (2^15 points and up)
   host_cpu_ms      self CPU time of the profiled host ops
+  peak_mem_gib     torch.cuda.max_memory_allocated over the profiled batch
 The profiler's key_averages table (top rows by device time) goes to stdout,
 or whole to `--out`.  Imports no JAX.
 """
@@ -94,15 +96,17 @@ def profile_shape(name, data, wits, pis, runs):
     batch = len(pis)
     _timed(data, wits, pis)  # warm-up
     walls = [_timed(data, wits, pis) for _ in range(runs)]
-    K.permute_planar.launches = 0
-    N.ntt_rows.launches = 0
-    T.ntt_four_step_t.launches = 0
+    for w in (K.permute_planar, K.hash_leaves, K.merkle_levels, N.ntt_rows,
+              T.ntt_four_step_t):
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prove_batch(data, wits, pis)
         torch.cuda.synchronize()
     events = prof.key_averages()
     device = [e for e in events if e.device_type == DeviceType.CUDA]
-    k1 = [e for e in device if "poseidon2" in e.key]
+    k1 = [e for e in device if any(k in e.key for k in ("poseidon2", "hash_leaves",
+                                                          "merkle_levels"))]
     k2 = [e for e in device if "ntt_rows" in e.key]
     k2c = [e for e in device if "ntt_cols" in e.key]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
@@ -116,7 +120,7 @@ def profile_shape(name, data, wits, pis, runs):
         "idle_share": 1 - busy_ms / 1e3 / float(np.median(walls)),
         "k1_ms": sum(e.self_device_time_total for e in k1) / 1e3,
         "k1_events": sum(e.count for e in k1),
-        "k1_launches": K.permute_planar.launches,
+        "k1_launches": K.launches(),
         "k2_ms": sum(e.self_device_time_total for e in k2) / 1e3,
         "k2_events": sum(e.count for e in k2),
         "k2_launches": N.ntt_rows.launches,
@@ -124,6 +128,7 @@ def profile_shape(name, data, wits, pis, runs):
         "k2c_events": sum(e.count for e in k2c),
         "k2c_launches": T.ntt_four_step_t.launches,
         "host_cpu_ms": sum(e.self_cpu_time_total for e in events) / 1e3,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     return rec, events
 
