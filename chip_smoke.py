@@ -3,19 +3,24 @@
     python3 chip_smoke.py
 
 Builds K1 (the Poseidon2 CUDA kernels: the permutation, the Merkle leaf
-hash and the Merkle levels), K2 (the fused-NTT CUDA kernel), K2c (the
-transpose-fused four-step NTT CUDA kernel, with its LDE and coset-iNTT
-entries) and P1 (the field-primitive probe) from the sources in this
-checkout, the four `nvcc` runs started together, and prints each kernel's
-registers, spills and SASS instruction counts.  P1 runs first: every
-primitive's cost on the card, each chain bit for bit against its plain
-twin.  Then it holds each kernel bit for bit against its plain PyTorch
-version at the shapes the prover gives it (K1 also against the host model,
-and its Merkle entries against the sponge-by-permutation composition they
-replaced; K2 at every size from 2^1 to 2^14 with every flag; K2c from 2^6
-to 2^10 and from 2^15 to 2^20, at B=1 and 3, and at the LDE widths, where
-the K2 + torch-transpose four-step and the pad + coset-multiply + K2c
-composition it replaced are timed beside it).  Then it drives three paths:
+hash and the Merkle levels), K2 (the NTT CUDA kernel of rows up to 2^14
+points, with its LDE and coset-iNTT entries), K2c (the transpose-fused
+four-step NTT CUDA kernel, with its LDE and coset-iNTT entries) and P1 (the
+field-primitive probe) from the sources in this checkout, the four `nvcc`
+runs started together, and prints each kernel's registers, spills and SASS
+instruction counts.  P1 runs first: every primitive's cost on the card, the
+lazy ones in both their carry-chain and compare-and-select forms, each chain bit
+for bit against its plain twin.  Then it holds each kernel bit for bit
+against its plain PyTorch version at the shapes the prover gives it (K1
+also against the host model, and its Merkle entries against the
+sponge-by-permutation composition they replaced; K2 at every size from 2^1
+to 2^14 with every flag, and its entries, timed beside the pad +
+coset-multiply + K2 compositions they replaced; K2c from 2^6 to 2^10 and
+from 2^15 to 2^20, at B=1 and 3, and at the LDE widths, where the K2 +
+torch-transpose four-step and the pad + coset-multiply + K2c composition it
+replaced are timed beside it, and the prover's `ntt`, `intt`, `lde` and
+`coset_intt` from 2^21 to 2^24 points, three K2c launches each).  Then it
+drives three paths:
 
   tree-node proofs (the map phase): batches of tree-node proofs with
   `prover/batch.prove_batch` at the light (`test_config`, B=32) and the
@@ -61,6 +66,7 @@ record as JSON, the last line `{"ok": true, "device": {...}}`.  Needs one
 CUDA card; imports no JAX.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -198,6 +204,23 @@ def _count(name):
     return sum(w.launches for w in KERNELS[name])
 
 
+K2_ENTRIES = ("ntt_rows", "lde_rows", "coset_intt_rows")
+
+
+@contextlib.contextmanager
+def _plain_k2():
+    """prover/ntt's K2 entries replaced by their plain twins: the NTTs'
+    plain path below 2^15 points."""
+    saved = {name: getattr(ntt, name) for name in K2_ENTRIES}
+    for name in K2_ENTRIES:
+        setattr(ntt, name, getattr(N, name + "_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ntt, name, fn)
+
+
 def _reset_counts():
     for wrappers in KERNELS.values():
         for w in wrappers:
@@ -255,6 +278,9 @@ def phase_probe(card):
     if launches == 0:
         _fail("the probe did not launch its kernel")
     PC.print_table(table, card)
+    for op in ("add_lazy", "sub_lazy", "mul_lazy", "sqr_lazy"):
+        print(f"P1 {op}: carry chains {table[op]['int_instr_per_op']:.2f}, compare and select "
+              f"{table[op + '_sel']['int_instr_per_op']:.2f} int instructions/op")
     a, b = PC.inputs("cuda")
     plain_ms = _time_ms(lambda: PC.probe_plain("mul_lazy", 128, a, b), 2)
     bound_ms, bound_by = _bound(3 * 8 * PC.N, 128 * PC.N * MUL64_ISSUES)
@@ -384,9 +410,11 @@ def phase_k1_merkle(card):
 
 
 def _k2_work(rows, n, twiddle_rows, scale):
-    """(bytes, multiplier issues) of one ntt_rows call."""
+    """(bytes, multiplier issues) of one ntt_rows call, as the function
+    needs them: the rows and the twiddle read once, the rows written once
+    (the kernel's own pass table is its design's choice, not counted)."""
     log_n = n.bit_length() - 1
-    nbytes = 16 * rows * n + 8 * (n - 1) + 8 * twiddle_rows * n
+    nbytes = 16 * rows * n + 8 * twiddle_rows * n
     muls = rows * _dit_muls(log_n) + rows * n * ((twiddle_rows > 0) + scale)
     return nbytes, muls * MUL64_ISSUES
 
@@ -446,7 +474,81 @@ def phase_k2(card):
               f"({bound_by}), identical; {card}")
         del x
         torch.cuda.empty_cache()
+
+    # the LDE and coset-iNTT entries: every output size, rates 1 and 3,
+    # against their plain twins; then timed at the tree node's wire LDE
+    # (16 -> 128 points) and quotient coset iNTT, and at 2^13 points
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    checks = 0
+    for log_n in range(1, N.MAX_LOG_N + 1):
+        rows = 12 if log_n >= 11 else 4 * (2048 >> log_n) + 3
+        x = _rand_rows(rng, (rows, 1 << log_n), dev)
+        cases = [("coset_intt", x, N.coset_intt_rows(x, shift),
+                  N.coset_intt_rows_plain(x, shift))]
+        for rate in (1, 3) if log_n >= 3 else (1,):
+            c = x[:, : 1 << (log_n - rate)].contiguous()
+            cases.append((f"lde rate {rate}", c, N.lde_rows(c, rate, shift),
+                          N.lde_rows_plain(c, rate, shift)))
+        for kind, inp, got, want in cases:
+            err = max(err, _max_abs_err(got, want))
+            checks += 1
+            if not torch.equal(got, want):
+                _fail(f"K2's {kind} entry disagrees with its plain twin at 2^{log_n}")
+            if kind.startswith("lde") and not torch.equal(
+                    N.coset_intt_rows(got, shift)[:, : inp.shape[1]], inp):
+                _fail(f"coset_intt_rows(lde_rows(c)) != c at 2^{log_n}")
+    print(f"K2 entries vs plain: {checks} cases (coset iNTT and LDE at rates 1 and 3, "
+          f"log n 1..14), coset_intt(lde(c)) == c; max_abs_err {err} (tolerance 0: "
+          f"bit-exact)")
+    entries = [(f"LDE ({batch}*{WIRES}, 2^{log_n - 3} -> 2^{log_n})", batch * WIRES, log_n,
+                "lde") for batch, log_n in ((LIGHT_BATCH, 7), (16, 13))]
+    entries += [(f"coset iNTT ({batch}*2, 2^{log_n})", batch * 2, log_n, "coset_intt")
+                for batch, log_n in ((LIGHT_BATCH, 7), (16, 13))]
+    for name, rows, log_n, kind in entries:
+        if kind == "lde":
+            x = _rand_rows(rng, (rows, 1 << (log_n - 3)), dev)
+            new = lambda: N.lde_rows(x, 3, shift)  # noqa: E731
+            plain = lambda: N.lde_rows_plain(x, 3, shift)  # noqa: E731
+            old = lambda: N.lde_rows_plain(x, 3, shift, N.ntt_rows)  # noqa: E731
+        else:
+            x = _rand_rows(rng, (rows, 1 << log_n), dev)
+            new = lambda: N.coset_intt_rows(x, shift)  # noqa: E731
+            plain = lambda: N.coset_intt_rows_plain(x, shift)  # noqa: E731
+            old = lambda: N.coset_intt_rows_plain(x, shift, N.ntt_rows)  # noqa: E731
+        if not torch.equal(new(), plain()) or not torch.equal(new(), old()):
+            _fail(f"K2's {kind} entry disagrees with its plain twin or the old "
+                  f"composition at {name}")
+        k_ms = _time_ms(new, 20)
+        old_ms = _time_ms(old, 20)
+        p_ms = _time_ms(plain, 2)
+        bound_ms, bound_by = _bound(*_k2_entry_work(rows, log_n, kind))
+        timings[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "composition_ms": old_ms}
+        print(f"K2 {kind} entry at {name}: kernel {k_ms:.4f} ms, the composition it "
+              f"replaced {old_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), identical; {card}")
+        del x
+    torch.cuda.empty_cache()
     return err, timings
+
+
+def _k2_entry_work(rows, log_n, kind, rate=3):
+    """(bytes, multiplier issues) of K2's LDE entry at `rate` (coefficients
+    in, 2^log_n points out, a coset factor per coefficient after the first;
+    the first `rate` stages of the transform only copy, the input being
+    non-zero at one slot in 2^rate) or its coset-iNTT entry (a factor per
+    point), as the function needs them, as `_k2c_entry_work` counts K2c's:
+    the input read once and the output written once (the coset factors and
+    the pass table are the kernel's tables, their products counted)."""
+    n = 1 << log_n
+    if kind == "lde":
+        n_in = n >> rate
+        nbytes = 8 * rows * (n_in + n)
+        muls = _dit_muls(log_n, rate) + n_in - 1
+    else:
+        nbytes = 16 * rows * n
+        muls = _dit_muls(log_n) + n
+    return nbytes, rows * muls * MUL64_ISSUES
 
 
 def _four_step_k2(x, inverse):
@@ -459,12 +561,12 @@ def _four_step_k2(x, inverse):
 def _k2c_work(rows, n, inverse):
     """(bytes, multiplier issues) of one ntt_four_step_t call, as the
     function needs them: every input read once and every output written once
-    (the kernel's two passes move them twice), the middle-twiddle table and
-    the stage tables; the products of a radix-2 transform of n points (as
-    many as the four-step's passes and middle twiddle need), one for the
-    scale of an inverse."""
-    log1, log2 = T.split(n.bit_length() - 1)
-    nbytes = 16 * rows * n + 8 * (n + (1 << log1) + (1 << log2))
+    (the kernel's passes move them two or three times, and its middle-
+    twiddle and stage tables are its design's choice, their products
+    counted); the products of a radix-2 transform of n points (as many as
+    the four-step's passes and middle twiddles need), one for the scale of
+    an inverse."""
+    nbytes = 16 * rows * n
     muls = rows * _dit_muls(n.bit_length() - 1) + rows * n * inverse
     return nbytes, muls * MUL64_ISSUES
 
@@ -478,7 +580,7 @@ def phase_k2c(card):
     rng = np.random.default_rng(3)
     dev = torch.device("cuda")
     err, checks = 0, 0
-    for log_n in list(range(T.MIN_LOG_N, 11)) + list(range(15, T.MAX_LOG_N + 1)):
+    for log_n in list(range(T.MIN_LOG_N, 11)) + list(range(15, 21)):
         for rows in (1, 3):
             x = _rand_rows(rng, (rows, 1 << log_n), dev)
             for inverse in (False, True):
@@ -498,13 +600,48 @@ def phase_k2c(card):
           f"directions, B=1 also vs the CPU; max_abs_err {err} (tolerance 0: "
           f"bit-exact); intt(ntt(x)) == x from 2^15")
 
+    # above 2^20 points: the prover's entries, three K2c launches each,
+    # against the plain twins on the card
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    timings = {}
+    for log_n in range(21, 25):
+        rows = 2 if log_n < 24 else 1
+        n = 1 << log_n
+        x = _rand_rows(rng, (rows, n), dev)
+        c = x[:, : n >> 3].contiguous()
+        calls = [("ntt", lambda: ntt.ntt(x), lambda: T.ntt_four_step_plain(x, False)),
+                 ("intt", lambda: ntt.intt(x), lambda: T.ntt_four_step_plain(x, True)),
+                 ("lde", lambda: ntt.lde(c, 3, shift), lambda: T.lde_t_plain(c, 3, shift)),
+                 ("coset_intt", lambda: ntt.coset_intt(x, shift),
+                  lambda: T.coset_intt_t_plain(x, shift))]
+        for kind, new, plain in calls:
+            before = T.ntt_four_step_t.launches
+            got = new()
+            if T.ntt_four_step_t.launches != before + 3:
+                _fail(f"prover/ntt.{kind} at 2^{log_n} did not take three K2c launches")
+            want = plain()
+            err = max(err, _max_abs_err(got, want))
+            if not torch.equal(got, want):
+                _fail(f"prover/ntt.{kind} disagrees with the plain twin at 2^{log_n}")
+            del got, want
+        name = f"transform ({rows}, 2^{log_n})"
+        k_ms = _time_ms(lambda: ntt.ntt(x), 5)
+        bound_ms, bound_by = _bound(*_k2c_work(rows, n, False))
+        timings[name] = {"ms": k_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"K2c at {name}, three passes {T.passes(log_n)}: kernel {k_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); ntt, intt, lde (rate 3) and coset_intt "
+              f"identical to their plain twins; {card}")
+        del x, c
+        torch.cuda.empty_cache()
+    print(f"K2c from 2^21 to 2^24: prover/ntt's ntt, intt, lde and coset_intt bit-exact, "
+          f"max_abs_err {err}")
+
     # the slice's LDE shapes: B=16 batches of 2^13-row wraps (2^16 points),
     # B=8 aggregation members of 2^14 rows (2^17), a rows member of 2^15
     # rows (2^18); the wire iNTT of a 2^15-row member
     shapes = [(f"LDE ({batch}*{WIRES}, 2^{log_n})", batch * WIRES, log_n, False)
               for batch, log_n in ((16, 16), (8, 17), (1, 18))]
     shapes.append((f"iNTT (2*{WIRES}, 2^15)", 2 * WIRES, 15, True))
-    timings = {}
     for name, rows, log_n, inverse in shapes:
         n = 1 << log_n
         x = _rand_rows(rng, (rows, n), dev)
@@ -574,21 +711,21 @@ def phase_k2c(card):
 def _k2c_entry_work(rows, log_n, kind):
     """(bytes, multiplier issues) of an LDE at rate 3 (coefficients in,
     2^log_n points out, a coset factor per coefficient after the first) or a
-    coset iNTT (a factor per point) as the function needs them.  The LDE's
-    four-step: pass 1's columns of n1 points hold one coefficient in 8, so
+    coset iNTT (a factor per point) as the function needs them: the input
+    read once and the output written once (the kernel's tables are its
+    design's choice, their products counted).  The LDE's four-step: pass 1's columns of n1 points hold one coefficient in 8, so
     its first 3 stages only copy; then pass 2's columns and the middle
     twiddle, which is 1 in the first row and column of the (n1, n2) view."""
     n = 1 << log_n
-    log1, log2 = T.split(log_n)
+    log1, log2 = T.passes(log_n)  # two passes at the timed shapes
     n1, n2 = 1 << log1, 1 << log2
-    nbytes = 8 * (n + n1 + n2)  # the middle-twiddle and stage tables
     if kind == "lde":
         n_in = n >> 3
-        nbytes += 8 * rows * (n_in + n) + 8 * n_in
+        nbytes = 8 * rows * (n_in + n)
         muls = (n2 * _dit_muls(log1, 3) + n1 * _dit_muls(log2) + (n - n1 - n2 + 1)
                 + (n_in - 1))
     else:
-        nbytes += 16 * rows * n + 8 * n
+        nbytes = 16 * rows * n
         muls = _dit_muls(log_n) + n
     return nbytes, rows * muls * MUL64_ISSUES
 
@@ -628,18 +765,17 @@ def phase_tree_nodes(card, dev, launches):
     digests = [proof_sha256(proof_to_dict(p)) for p in prove_batch(data, wits, pis)]
     if digests != golden["proof_sha256"]:
         _fail(f"B=2 proofs differ from the JAX golden digests: {digests}")
-    # the plain paths on the card: every K1 entry and K2 by their plain twins
+    # the plain paths on the card: every K1 and K2 entry by its plain twin
     entries = (K.hash_leaves, K.merkle_levels)
     p2.permute_planar = K.permute_planar_plain
     K.hash_leaves, K.merkle_levels = K.hash_leaves_plain, K.merkle_levels_plain
-    ntt.ntt_rows = N.ntt_rows_plain
     before = [w.launches for w in KERNELS["K1"] + KERNELS["K2"]]
     try:
-        plain = [proof_sha256(proof_to_dict(p)) for p in prove_batch(data, wits, pis)]
+        with _plain_k2():
+            plain = [proof_sha256(proof_to_dict(p)) for p in prove_batch(data, wits, pis)]
     finally:
         p2.permute_planar = K.permute_planar
         K.hash_leaves, K.merkle_levels = entries
-        ntt.ntt_rows = N.ntt_rows
     if [w.launches for w in KERNELS["K1"] + KERNELS["K2"]] != before:
         _fail("the plain-path prove launched a kernel")
     if plain != digests:
@@ -663,15 +799,11 @@ def phase_timing(card, shapes):
     walls = {v: [] for v in variants}
     for i in range(TIMED_BATCHES):
         for metric, route in variants if i % 2 == 0 else variants[::-1]:
-            if route:
-                ntt.ntt_rows = N.ntt_rows_plain
-            try:
+            with _plain_k2() if route else contextlib.nullcontext():
                 t0 = time.perf_counter()
                 prove_batch(*shapes[metric])
                 torch.cuda.synchronize()
                 walls[(metric, route)].append(time.perf_counter() - t0)
-            finally:
-                ntt.ntt_rows = N.ntt_rows
     for (metric, route), w in walls.items():
         batch = len(shapes[metric][2])
         q1, med, q3 = np.percentile(w, [25, 50, 75])

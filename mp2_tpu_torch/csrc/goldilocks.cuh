@@ -4,7 +4,8 @@
 // (mp2_tpu/ops/gl_u32.py: add/sub/mul/canon and the lazy set).  The TPU's
 // vector unit has no 64-bit integers, so the Pallas kernels carry (lo, hi)
 // u32 planes; here every value is one native uint64_t, the 64x64 -> 128
-// product is `a * b` plus `__umul64hi(a, b)`, and reduction uses
+// product is four 32-bit limb products (`a * b` plus `__umul64hi(a, b)` in
+// the canonical set, a PTX mad chain in the lazy one), and reduction uses
 // 2^64 = 2^32 - 1 and 2^96 = -1 (mod p).
 //
 // Two dialects.  The canonical functions (canon, add, sub, reduce128, mul)
@@ -57,44 +58,126 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
 
 // ---------------------------------------------------------------------------
 // Lazy dialect: in [0, 2^64), out [0, 2^64), congruent mod p.
+//
+// Written as PTX carry chains on 32-bit limbs: an add or sub sets the carry
+// flag and `addc`/`subc` read it, where compiled C compares the sum with an
+// operand and selects.  A fold by EPS * carry is a 32-bit mask (0 or
+// 0xFFFFFFFF: EPS has no high limb): after a sub chain `subc.u32 m, 0, 0`
+// is -borrow in one instruction; after an add chain the carry is read as
+// `addc.u32 c, 0, 0` and negated (a `subc` reading an add's carry flag
+// computes the opposite on sm_90a, so chains never mix the two).  The
+// compare-and-select forms they replaced stay in the P1 probe
+// (csrc/probe_ops.cu, the *_sel ops), which times both.
 // ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t lo32(uint64_t x) { return (uint32_t)x; }
+__device__ __forceinline__ uint32_t hi32(uint64_t x) { return (uint32_t)(x >> 32); }
+__device__ __forceinline__ uint64_t join(uint32_t lo, uint32_t hi) {
+  return ((uint64_t)hi << 32) | lo;
+}
 
 // a + b.  A carry out of 2^64 is worth EPS; a second carry leaves s < EPS,
 // so the second fold cannot carry again.
 __device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
-  uint64_t s = a + b;
-  const uint64_t c = (s < a) ? EPS : 0;
-  s += c;
-  return s + ((s < c) ? EPS : 0);
+  uint32_t s0, s1;
+  asm("{\n\t.reg .u32 c, m;\n\t"
+      "add.cc.u32 %0, %2, %4;\n\t"
+      "addc.cc.u32 %1, %3, %5;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "sub.u32 m, 0, c;\n\t"       // EPS * carry
+      "add.cc.u32 %0, %0, m;\n\t"
+      "addc.cc.u32 %1, %1, 0;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "sub.u32 m, 0, c;\n\t"
+      "add.cc.u32 %0, %0, m;\n\t"
+      "addc.u32 %1, %1, 0;\n\t}"
+      : "=&r"(s0), "=&r"(s1)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(s0, s1);
+}
+
+// a + b with one fold, for b < 2^64 - EPS (then a carry leaves
+// a + b - 2^64 < b, and the fold cannot carry again).
+__device__ __forceinline__ uint64_t add_lazy_once(uint64_t a, uint64_t b) {
+  uint32_t s0, s1;
+  asm("{\n\t.reg .u32 c, m;\n\t"
+      "add.cc.u32 %0, %2, %4;\n\t"
+      "addc.cc.u32 %1, %3, %5;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "sub.u32 m, 0, c;\n\t"
+      "add.cc.u32 %0, %0, m;\n\t"
+      "addc.u32 %1, %1, 0;\n\t}"
+      : "=&r"(s0), "=&r"(s1)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(s0, s1);
 }
 
 // a - b.  A borrow of 2^64 is worth -EPS; a second borrow leaves
 // d >= 2^64 - EPS, so the second fold cannot borrow again.
 __device__ __forceinline__ uint64_t sub_lazy(uint64_t a, uint64_t b) {
-  const uint64_t d = a - b;
-  const uint64_t w = (a < b) ? EPS : 0;
-  const uint64_t e = d - w;
-  return e - ((d < w) ? EPS : 0);
+  uint32_t d0, d1;
+  asm("{\n\t.reg .u32 m;\n\t"
+      "sub.cc.u32 %0, %2, %4;\n\t"
+      "subc.cc.u32 %1, %3, %5;\n\t"
+      "subc.u32 m, 0, 0;\n\t"      // EPS * borrow
+      "sub.cc.u32 %0, %0, m;\n\t"
+      "subc.cc.u32 %1, %1, 0;\n\t"
+      "subc.u32 m, 0, 0;\n\t"
+      "sub.cc.u32 %0, %0, m;\n\t"
+      "subc.u32 %1, %1, 0;\n\t}"
+      : "=&r"(d0), "=&r"(d1)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(d0, d1);
 }
 
-// lo + hi * 2^64 for any lo, hi: reduce128 without its final canon.
+// h * EPS = h * 2^32 - h for h < 2^32: below 2^64 - 2^33 + 2.
+__device__ __forceinline__ uint64_t mul_eps(uint64_t h) { return (h << 32) - h; }
+
+// lo + hi * 2^64 for any lo, hi, by 2^64 = EPS and 2^96 = -1:
+// lo - hi_hi (a borrow folds -EPS once: lo - hi_hi >= 2^64 - 2^32 after a
+// borrow), then + hi_lo * EPS (a carry folds +EPS once: that term is below
+// 2^64 - 2^33 + 2).
 __device__ __forceinline__ uint64_t reduce128_lazy(uint64_t lo, uint64_t hi) {
-  const uint64_t hi_lo = hi & 0xFFFFFFFFull;
-  const uint64_t hi_hi = hi >> 32;
-  uint64_t t0 = lo - hi_hi;            // + hi_hi * 2^96 = - hi_hi
-  t0 -= (lo < hi_hi) ? EPS : 0;        // borrow: t0 >= 2^64 - 2^32, no re-borrow
-  const uint64_t t1 = (hi_lo << 32) - hi_lo;  // hi_lo * EPS, < 2^64 - 2^33 + 2
-  const uint64_t s = t0 + t1;
-  return s + ((s < t1) ? EPS : 0);     // carry: s < t1, so s + EPS < 2^64
+  const uint32_t h0 = lo32(hi), h1 = hi32(hi);
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 c, m, e0, e1;\n\t"
+      "sub.cc.u32 %0, %2, %5;\n\t"  // lo - h1
+      "subc.cc.u32 %1, %3, 0;\n\t"
+      "subc.u32 m, 0, 0;\n\t"
+      "sub.cc.u32 %0, %0, m;\n\t"
+      "subc.u32 %1, %1, 0;\n\t"
+      "sub.cc.u32 e0, 0, %4;\n\t"   // h0 * EPS = (h0 << 32) - h0
+      "subc.u32 e1, %4, 0;\n\t"
+      "add.cc.u32 %0, %0, e0;\n\t"
+      "addc.cc.u32 %1, %1, e1;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "sub.u32 m, 0, c;\n\t"
+      "add.cc.u32 %0, %0, m;\n\t"
+      "addc.u32 %1, %1, 0;\n\t}"
+      : "=&r"(r0), "=&r"(r1)
+      : "r"(lo32(lo)), "r"(hi32(lo)), "r"(h0), "r"(h1));
+  return join(r0, r1);
 }
 
-// The 128-bit product a * b as (lo, hi).  The 64-bit multiply and
-// __umul64hi compile to fewer instructions than a schoolbook on 32-bit
-// limbs written out here (CUDA 12.9).
+// The 128-bit product a * b as (lo, hi): four 32x32 -> 64 limb products
+// (mul.lo / mul.hi) summed by mad carry chains.
 __device__ __forceinline__ void mul128(uint64_t a, uint64_t b, uint64_t& lo,
                                        uint64_t& hi) {
-  lo = a * b;
-  hi = __umul64hi(a, b);
+  const uint32_t a0 = lo32(a), a1 = hi32(a), b0 = lo32(b), b1 = hi32(b);
+  uint32_t r0, r1, r2, r3;
+  asm("mul.lo.u32 %0, %4, %6;\n\t"
+      "mul.hi.u32 %1, %4, %6;\n\t"
+      "mad.lo.cc.u32 %1, %4, %7, %1;\n\t"
+      "madc.hi.u32 %2, %4, %7, 0;\n\t"
+      "mad.lo.cc.u32 %1, %5, %6, %1;\n\t"
+      "madc.hi.cc.u32 %2, %5, %6, %2;\n\t"
+      "madc.hi.u32 %3, %5, %7, 0;\n\t"
+      "mad.lo.cc.u32 %2, %5, %7, %2;\n\t"
+      "addc.u32 %3, %3, 0;"
+      : "=&r"(r0), "=&r"(r1), "=&r"(r2), "=&r"(r3)
+      : "r"(a0), "r"(a1), "r"(b0), "r"(b1));
+  lo = join(r0, r1);
+  hi = join(r2, r3);
 }
 
 // a * b for any a, b (the product is below 2^128).

@@ -25,6 +25,11 @@
 // computes the same function in canonical arithmetic can be held against it
 // bit for bit.  The ops are those of the table in
 // mp2_tpu_torch/ops/probe_cuda.py (OPS), in the same order.
+//
+// The *_SEL ops time the lazy primitives in compiled C (a carry or borrow
+// read by comparing the result with an operand, folded by a select), the
+// forms goldilocks.cuh's PTX carry chains replaced, kept here so that one
+// run prices both.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,8 +43,53 @@ constexpr int THREADS = 256;
 enum Op {
   MUL, MUL_LAZY, SQR, SQR_LAZY, ADD, ADD_LAZY, SUB, SUB_LAZY, CANON,
   MUL_POW2_LAZY, MUL_POW2_WARP, MUL_POW2_UNIFORM, MUL32, MUL_WIDE, SELECT,
-  SHFL
+  SHFL, ADD_LAZY_SEL, SUB_LAZY_SEL, MUL_LAZY_SEL, SQR_LAZY_SEL
 };
+
+// The lazy set by compare and select: in [0, 2^64), out [0, 2^64),
+// congruent mod p, as goldilocks.cuh's lazy functions.
+namespace sel {
+
+using gl::EPS;
+
+__device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
+  uint64_t s = a + b;
+  const uint64_t c = (s < a) ? EPS : 0;
+  s += c;
+  return s + ((s < c) ? EPS : 0);
+}
+
+__device__ __forceinline__ uint64_t sub_lazy(uint64_t a, uint64_t b) {
+  const uint64_t d = a - b;
+  const uint64_t w = (a < b) ? EPS : 0;
+  const uint64_t e = d - w;
+  return e - ((d < w) ? EPS : 0);
+}
+
+__device__ __forceinline__ uint64_t reduce128_lazy(uint64_t lo, uint64_t hi) {
+  const uint64_t hi_lo = hi & 0xFFFFFFFFull;
+  const uint64_t hi_hi = hi >> 32;
+  uint64_t t0 = lo - hi_hi;
+  t0 -= (lo < hi_hi) ? EPS : 0;
+  const uint64_t t1 = (hi_lo << 32) - hi_lo;
+  const uint64_t s = t0 + t1;
+  return s + ((s < t1) ? EPS : 0);
+}
+
+__device__ __forceinline__ uint64_t mul_lazy(uint64_t a, uint64_t b) {
+  return reduce128_lazy(a * b, __umul64hi(a, b));
+}
+
+__device__ __forceinline__ uint64_t sqr_lazy(uint64_t a) {
+  const uint32_t al = (uint32_t)a, ah = (uint32_t)(a >> 32);
+  const uint64_t ll = (uint64_t)al * al, lh = (uint64_t)al * ah,
+                 hh = (uint64_t)ah * ah;
+  const uint64_t lo = ll + (lh << 33);
+  const uint64_t hi = hh + (lh >> 31) + (lo < ll);
+  return reduce128_lazy(lo, hi);
+}
+
+}  // namespace sel
 
 template <int OP>
 __device__ __forceinline__ uint64_t step(uint64_t x, uint64_t y, uint32_t e,
@@ -71,6 +121,10 @@ __device__ __forceinline__ uint64_t step(uint64_t x, uint64_t y, uint32_t e,
     case SHFL:  // lane i takes lane (i + 1 + r % 7) mod 32's value
       return (uint64_t)__shfl_sync(0xffffffffu, (unsigned long long)x,
                                    (lane + 1 + r % 7) & 31);
+    case ADD_LAZY_SEL: return sel::add_lazy(x, y);
+    case SUB_LAZY_SEL: return sel::sub_lazy(x, y);
+    case MUL_LAZY_SEL: return sel::mul_lazy(x, y);
+    case SQR_LAZY_SEL: return sel::sqr_lazy(x);
   }
   return x;
 }
@@ -106,7 +160,8 @@ probe_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
 constexpr bool is_product(int op) {
   return op == MUL || op == MUL_LAZY || op == SQR || op == SQR_LAZY ||
          op == MUL_POW2_LAZY || op == MUL_POW2_WARP ||
-         op == MUL_POW2_UNIFORM || op == MUL_WIDE;
+         op == MUL_POW2_UNIFORM || op == MUL_WIDE || op == MUL_LAZY_SEL ||
+         op == SQR_LAZY_SEL;
 }
 
 template <int OP, int K>
@@ -159,6 +214,10 @@ extern "C" int mp2_probe_ops(int op, int k, const void* a, const void* b,
     case MUL_WIDE: return launch<MUL_WIDE>(k, pa, pb, po, n, s);
     case SELECT: return launch<SELECT>(k, pa, pb, po, n, s);
     case SHFL: return launch<SHFL>(k, pa, pb, po, n, s);
+    case ADD_LAZY_SEL: return launch<ADD_LAZY_SEL>(k, pa, pb, po, n, s);
+    case SUB_LAZY_SEL: return launch<SUB_LAZY_SEL>(k, pa, pb, po, n, s);
+    case MUL_LAZY_SEL: return launch<MUL_LAZY_SEL>(k, pa, pb, po, n, s);
+    case SQR_LAZY_SEL: return launch<SQR_LAZY_SEL>(k, pa, pb, po, n, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,8 @@
 Replaces `mp2_tpu/ops/ntt_pallas.py::_make_fused_kernel_t` (the Pallas TPU
 kernel K2c, launched by `_compiled_fused_t` through `ntt_four_step_fused_t`):
 the four-step (Bailey) transform of (B, n) rows with both transposes inside
-the kernel.  The kernel source is `csrc/ntt_t.cu`, on K2's stages
-(`csrc/ntt_stages.cuh`) and `csrc/goldilocks.cuh`; its header comment says
+the kernel.  The kernel source is `csrc/ntt_t.cu` (its radix-4 stages
+included) on `csrc/goldilocks.cuh`; its header comment says
 what bounds it on Hopper (integer issue: each pass reads and writes each
 element once, but its stages cost ~30 integer instructions per element) and
 how the design answers that (a tile of matrix columns is transposed in
@@ -12,7 +12,9 @@ shared memory; lazy radix-4 stages).
 
 Three entries, each two launches of the kernel (the column pass with the
 middle twiddle, written transposed, then the row pass) for contiguous rows
-of 2^6 to 2^20 points (n1, n2 from 8 to 2^10):
+of 2^6 to 2^20 points (n1, n2 from 8 to 2^10), and three launches from
+2^21 to 2^30 points (`passes`: n = n1 * n2 * n3, each at most 2^10, the
+row pass a four-step of its own with its own middle twiddle):
   * `ntt_four_step_t(x, inverse)`: (B, n) rows, each transformed; natural
     order out, scaled by n^-1 when `inverse`;
   * `lde_t(coeffs, rate_bits, shift)`: (B, n) coefficients -> their
@@ -21,13 +23,15 @@ of 2^6 to 2^20 points (n1, n2 from 8 to 2^10):
     shift^j as it loads them;
   * `coset_intt_t(evals, shift)`: (B, n) evaluations on shift * H -> the
     coefficients; pass 2 multiplies by n^-1 * shift^-j as it stores.
-On a CPU tensor each runs its plain twin: `ntt_four_step_plain`, the torch
-four-step (K2's plain passes with torch transposes), for any power of two
-from 4, and `lde_t_plain` / `coset_intt_t_plain`, the padded, coset-
+On a CPU tensor each runs its plain twin: `ntt_four_step_plain`, the same
+decomposition with K2's plain passes and torch transposes, for any power of
+two from 4, and `lde_t_plain` / `coset_intt_t_plain`, the padded, coset-
 multiplied compositions `prover/ntt` ran around it.  On a CUDA tensor each
 launches the kernel or raises, and never falls back to its plain twin.
-`ntt_four_step_t.launches` counts the kernel's launches, two per transform,
-over all three entries.
+`ntt_four_step_t.launches` counts the kernel's launches, two or three per
+transform, over all three entries.  Above 2^30 points the entries raise:
+a row of 2^30 is 8 GiB, and its two scratch buffers and the first pass's
+middle-twiddle table (n values) take 24 GiB more.
 
 Build: at first use, `ops/_nvcc.build_library` compiles the kernel for
 sm_90a into `mp2_tpu_torch/_build/mp2_ntt_t-<hash>/` and loads it with
@@ -39,56 +43,53 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.field.goldilocks import P
 from mp2_tpu_torch.ops._nvcc import Built, build_library
 from mp2_tpu_torch.ops.ntt_cuda import (
-    _power_table,
-    _root_of_unity,
+    _coset_intt_post,
+    _coset_powers,
+    _root,
     _stage_table,
     ntt_rows_plain,
+    powers,
 )
 
 MIN_LOG_N = 6  # n1, n2 >= 8
-MAX_LOG_N = 20  # n1, n2 <= 2^10: a tile of 8 columns of 2^10 fills 64 KB
-_SOURCES = ("ntt_t.cu", "ntt_stages.cuh", "goldilocks.cuh")
+MAX_LOG_L = 10  # a pass's columns: a tile of 8 columns of 2^10 fills 64 KB
+MAX_LOG_N = 30  # three passes of at most 2^10 points
+_SOURCES = ("ntt_t.cu", "goldilocks.cuh")
 
 
-def split(log_n: int):
-    """(log n1, log n2): n1 = 2^floor(log n / 2) points per column of the
-    (n1, n2) matrix view of a row, n2 per matrix row."""
-    log1 = log_n // 2
-    return log1, log_n - log1
+def passes(log_n: int, max_log_l: int = MAX_LOG_L):
+    """log2 of each pass's column length: at least two passes, as few as
+    keep each at most 2^max_log_l, as equal as possible, the longer ones
+    last (two passes: floor(log n / 2), then the rest)."""
+    p = max(2, -(-log_n // max_log_l))
+    return [log_n // p + (i >= p - log_n % p) for i in range(p)]
 
 
 @functools.lru_cache(maxsize=None)
+def _pass_twiddles(log_total: int, log_l: int, inverse: bool, device) -> torch.Tensor:
+    """w^(k*j) for w = w_{2^log_total}, as a (2^(log_total - log_l),
+    2^log_l) table: row j is the middle twiddle of the transform of length
+    2^log_l that a pass computes for column j.  Built by doubling the
+    columns: column block [m, 2m) is columns [0, m) times w^(m*j)."""
+    w = _root(log_total, inverse)
+    rows = 1 << (log_total - log_l)
+    out = gl.ones((rows, 1), device)
+    while out.shape[1] < 1 << log_l:
+        m = out.shape[1]
+        out = torch.cat([out, gl.mul(out, powers(pow(w, m, P), rows, device)[:, None])], dim=1)
+    return out
+
+
 def _four_step_twiddles(log_n: int, inverse: bool, device) -> torch.Tensor:
-    """w^(k1*j2) as an (n2, n1) table: row j2 is the middle twiddle of the
-    column transform that pass 1 computes for column j2."""
-    log1, log2 = split(log_n)
-    n1, n2 = 1 << log1, 1 << log2
-    w = _root_of_unity(log_n)
-    if inverse:
-        w = pow(w, P - 2, P)
-    out = np.empty((n2, n1), dtype=np.uint64)
-    for j2 in range(n2):
-        out[j2] = _power_table(pow(w, j2, P), n1)
-    return gl.from_u64(out, device)
-
-
-@functools.lru_cache(maxsize=None)
-def _coset_powers(n: int, shift: int, device) -> torch.Tensor:
-    """shift^j, j < n: the coset factors of an LDE's coefficients."""
-    return gl.from_u64(_power_table(shift % P, n), device)
-
-
-@functools.lru_cache(maxsize=None)
-def _coset_intt_post(n: int, shift: int, device) -> torch.Tensor:
-    """n^-1 * shift^-j, j < n: the factors of a coset iNTT's outputs."""
-    return gl.mul_const(_coset_powers(n, pow(shift, P - 2, P), device), pow(n, P - 2, P))
+    """The (n / n1, n1) middle twiddle of the first pass, n1 =
+    2^passes(log_n)[0]: (n2, n1) for a two-pass transform."""
+    return _pass_twiddles(log_n, passes(log_n)[0], inverse, device)
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +105,7 @@ def build() -> Built:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return built
 
@@ -114,25 +115,36 @@ def build() -> Built:
 # ---------------------------------------------------------------------------
 
 
-def ntt_four_step_plain(x: torch.Tensor, inverse: bool, ntt_rows=None) -> torch.Tensor:
-    """(B, n) -> (B, n): the plain torch version of the kernel.  Bailey: view
-    a row as (n1, n2) row-major; y[k1 + n1*k2] =
-    NTT_j2( w^(j2 k1) * NTT_j1(x[j1, j2])[k1] )[k2]: 1) transform the
-    columns, with the middle twiddle, 2) transform the rows, 3) read out
-    transposed.  An inverse scales each pass by its own length's inverse,
-    n1^-1 * n2^-1 = n^-1.  `ntt_rows` runs the passes (default: K2's plain
-    twin)."""
+def ntt_four_step_plain(x: torch.Tensor, inverse: bool, ntt_rows=None,
+                        max_log_l: int = MAX_LOG_L) -> torch.Tensor:
+    """(B, n) -> (B, n): the plain torch version of the kernel's passes.
+    Bailey's four-step, nested: view a row as (n1, n2) row-major;
+    y[k1 + n1*k2] = NTT_j2( w^(j2 k1) * NTT_j1(x[j1, j2])[k1] )[k2]; each
+    pass transforms the next index j_i of the row (columns of length
+    2^passes()[i]), times the middle twiddle of the transform still to do
+    over (j_i, j_rest), and leaves the finished indices innermost, so the
+    last pass's output is in natural order.  An inverse scales each pass
+    by its own length's inverse, whose product is n^-1.  `ntt_rows` runs
+    the passes (default: K2's plain twin); `max_log_l` sets the longest
+    pass (the kernel's: 2^10)."""
     ntt_rows = ntt_rows or ntt_rows_plain
     B, n = x.shape
     log_n = n.bit_length() - 1
-    log1, log2 = split(log_n)
-    n1, n2 = 1 << log1, 1 << log2
-    cols = x.reshape(B, n1, n2).transpose(1, 2).reshape(-1, n1)  # (B*n2, n1)
-    a = ntt_rows(cols, inverse, twiddle=_four_step_twiddles(log_n, inverse, x.device),
-                 scale=inverse)
-    rows = a.reshape(B, n2, n1).transpose(1, 2).reshape(-1, n2)  # (B*n1, n2)
-    c = ntt_rows(rows, inverse, scale=inverse)
-    return c.reshape(B, n1, n2).transpose(1, 2).reshape(B, n)
+    lens = passes(log_n, max_log_l)
+    log_done = 0
+    for i, log_l in enumerate(lens):
+        log_rest = log_n - log_done - log_l
+        # layout (B, j_i, j_rest, done) -> rows (B, done, j_rest) of length L
+        cols = x.reshape(B, 1 << log_l, 1 << log_rest, 1 << log_done) \
+            .permute(0, 3, 2, 1).reshape(-1, 1 << log_l)
+        tw = (_pass_twiddles(log_l + log_rest, log_l, inverse, x.device)
+              if i < len(lens) - 1 else None)
+        a = ntt_rows(cols, inverse, twiddle=tw, scale=inverse)
+        # (B, done, j_rest, k_i) -> layout (B, j_rest, k_i, done)
+        x = a.reshape(B, 1 << log_done, 1 << log_rest, 1 << log_l) \
+            .permute(0, 2, 3, 1).reshape(B, n)
+        log_done += log_l
+    return x
 
 
 def lde_t_plain(coeffs: torch.Tensor, rate_bits: int, shift: int,
@@ -183,46 +195,53 @@ def _check_cuda(x: torch.Tensor, log_n: int, what: str):
 
 
 def _launch_passes(x, log_n, inverse, log_in, pre, post):
-    """Both kernel passes over the B rows of x, transforms of 2^log_n points.
-    x: (B, 2^log_in) contiguous, the first points of each row (the others
-    zero); pre: null or a factor per element of x's rows; post: null or a
-    factor per output point (else n^-1 when inverse).  Returns (B, 2^log_n)."""
+    """The kernel's passes over the B rows of x, transforms of 2^log_n
+    points, as `ntt_four_step_plain` decomposes them.  x: (B, 2^log_in)
+    contiguous, the first points of each row (the others zero); pre: null or
+    a factor per element of x's rows (pass 1); post: null or a factor per
+    output point (else n^-1 when inverse; last pass).  Returns (B, 2^log_n)."""
     dev, B = x.device, x.shape[0]
     n = 1 << log_n
-    log1, log2 = split(log_n)
-    a = torch.empty((B, n), dtype=torch.int64, device=dev)  # pass 1 out: (B, n2, n1)
-    out = torch.empty((B, n), dtype=torch.int64, device=dev)
+    bufs = [torch.empty((B, n), dtype=torch.int64, device=dev) for _ in range(2)]
     if B == 0:
-        return out
+        return bufs[0]
     fn = build().lib.mp2_ntt_cols
-    scale = pow(n, P - 2, P) if inverse and post is None else 0
-    passes = (
-        # columns of (n1, n2), of which the first 2^(log_in - log2) rows are
-        # given; middle twiddle; written transposed
-        (x, a, log1, log2, log_in - log2, pre, _stage_table(log1, inverse, dev),
-         _four_step_twiddles(log_n, inverse, dev), 0, 1),
-        # columns of (n2, n1), written back in place
-        (a, out, log2, log1, log2, None, _stage_table(log2, inverse, dev), post, scale, 0),
-    )
+    lens = passes(log_n)
+    log_done, src = 0, x
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for src, dst, log_l, log_m, log_l_in, pre_t, table, post_t, sc, transpose_out in passes:
-            rc = fn(src.data_ptr(), dst.data_ptr(), B, log_l, log_m, log_l_in,
-                    pre_t.data_ptr() if pre_t is not None else None, table.data_ptr(),
-                    post_t.data_ptr() if post_t is not None else None, sc,
-                    transpose_out, stream)
+        for i, log_l in enumerate(lens):
+            log_m = log_n - log_l
+            last = i == len(lens) - 1
+            # columns of (L, M) matrices; the first pass reads the first
+            # 2^(log_in - log_m) matrix rows; written as (M / D, L, D)
+            if last:
+                post_t, shift = post, 0
+                scale = pow(n, P - 2, P) if inverse and post is None else 0
+            else:
+                post_t = _pass_twiddles(log_n - log_done, log_l, inverse, dev)
+                shift, scale = log_done, 0
+            dst = bufs[i % 2]
+            rc = fn(src.data_ptr(), dst.data_ptr(), B, log_l, log_m,
+                    log_in - log_m if i == 0 else log_l,
+                    pre.data_ptr() if i == 0 and pre is not None else None,
+                    _stage_table(log_l, inverse, dev).data_ptr(),
+                    post_t.data_ptr() if post_t is not None else None, scale,
+                    log_m if last else log_done, shift, stream)
             if rc != 0:
                 raise RuntimeError(f"four-step NTT kernel launch failed: CUDA error {rc}")
             ntt_four_step_t.launches += 1
-    return out
+            src = dst
+            log_done += log_l
+    return src
 
 
 def ntt_four_step_t(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """(B, n) int64 canonical rows -> their transforms, natural order, scaled
     by n^-1 when `inverse`.
 
-    CPU tensor: the plain version.  CUDA tensor: the kernel (two launches on
-    the current stream), or an exception."""
+    CPU tensor: the plain version.  CUDA tensor: the kernel (two or three
+    launches on the current stream), or an exception."""
     log_n = _check(x, "four-step NTT")
     if x.device.type == "cpu":
         return ntt_four_step_plain(x, inverse)
@@ -235,16 +254,19 @@ def lde_t(coeffs: torch.Tensor, rate_bits: int, shift: int) -> torch.Tensor:
     evaluations on the coset shift * H, natural order (the low-degree
     extension).
 
-    CPU tensor: the plain version.  CUDA tensor: the kernel (two launches on
-    the current stream) for n * 2^rate_bits from 2^6 to 2^20 points and n at
-    least its matrix width (2^ceil(log N / 2)), or an exception."""
+    CPU tensor: the plain version.  CUDA tensor: the kernel (two or three
+    launches on the current stream) for n * 2^rate_bits from 2^6 to 2^30
+    points and n at least the width of the first pass's matrix (N / n1,
+    2^ceil(log N / 2) for two passes: rate_bits <= log n1), or an
+    exception."""
     log_n = _check(coeffs, "LDE")
     if coeffs.device.type == "cpu":
         return lde_t_plain(coeffs, rate_bits, shift)
     log_big = log_n + rate_bits
     _check_cuda(coeffs, log_big, "LDEs")
-    if log_n < split(log_big)[1]:
-        raise ValueError(f"the LDE kernel takes at least 2^{split(log_big)[1]} "
+    width = log_big - passes(log_big)[0]
+    if log_n < width:
+        raise ValueError(f"the LDE kernel takes at least 2^{width} "
                          f"coefficients for 2^{log_big} points, not 2^{log_n}")
     return _launch_passes(coeffs, log_big, False, log_n,
                           _coset_powers(1 << log_n, shift, coeffs.device), None)
@@ -254,8 +276,8 @@ def coset_intt_t(evals: torch.Tensor, shift: int) -> torch.Tensor:
     """(B, n) int64 canonical evaluations on the coset shift * H -> (B, n)
     coefficients: the inverse transform times shift^-j.
 
-    CPU tensor: the plain version.  CUDA tensor: the kernel (two launches on
-    the current stream), or an exception."""
+    CPU tensor: the plain version.  CUDA tensor: the kernel (two or three
+    launches on the current stream), or an exception."""
     log_n = _check(evals, "coset iNTT")
     if evals.device.type == "cpu":
         return coset_intt_t_plain(evals, shift)

@@ -48,11 +48,14 @@ _SOURCES = ("probe_ops.cu", "goldilocks.cuh")
 N = 1 << 23  # elements, as the TPU probe's 64 blocks of 8 x 2048 u32 pairs
 THREADS = 256
 PRODUCTS = ("mul", "mul_lazy", "sqr", "sqr_lazy", "mul_pow2_lazy", "mul_pow2_warp",
-            "mul_pow2_uniform", "mul_wide")
-# The ops of csrc/probe_ops.cu, in its enum's order
+            "mul_pow2_uniform", "mul_wide", "mul_lazy_sel", "sqr_lazy_sel")
+# The ops of csrc/probe_ops.cu, in its enum's order.  The *_sel ops are the
+# lazy primitives by compare and select, the forms goldilocks.cuh's carry
+# chains replaced, probe-local copies timed beside them.
 OPS = ("mul", "mul_lazy", "sqr", "sqr_lazy", "add", "add_lazy", "sub", "sub_lazy",
        "canon", "mul_pow2_lazy", "mul_pow2_warp", "mul_pow2_uniform", "mul32",
-       "mul_wide", "select", "shfl")
+       "mul_wide", "select", "shfl", "add_lazy_sel", "sub_lazy_sel", "mul_lazy_sel",
+       "sqr_lazy_sel")
 # Integer instructions per second of the H100 at its boost clock: the INT32
 # pipe runs 64 lanes per SM per clock (half the FP32 rate), 132 SMs, 1.98
 # GHz; a slope in these units is the op's cost in integer instructions
@@ -99,6 +102,7 @@ def _halves(x):
 
 
 def _step(op: str, x, y, r: int, two_e, two_ew):
+    op = op.removesuffix("_sel")  # the same residues as the lazy ops
     if op in ("mul", "mul_lazy"):
         return gl.mul(x, y)
     if op in ("sqr", "sqr_lazy"):

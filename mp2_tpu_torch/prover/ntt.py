@@ -6,17 +6,19 @@ card that is one launch of K2 (the fused NTT kernel), on the CPU its plain
 radix-2 twin.  From 2^15 points the four-step (Bailey) decomposition runs
 instead, as `ops/ntt_t_cuda.ntt_four_step_t`: on the card two launches of
 K2c (the transpose-fused four-step kernel, `ntt_pallas.py::
-ntt_four_step_fused_t` in the reference, where it is opt-in), with no
-transpose or copy through device memory between or around its passes; on
-the CPU its plain twin, K2's plain passes with torch transposes.  The
-reference gates its kernel at 512 points; on the card the gate is dropped,
-since an eager plain stage costs dozens of launches (a field multiply alone
-is ~30).
+ntt_four_step_fused_t` in the reference, where it is opt-in), three from
+2^21 to 2^30 points, with no transpose or copy through device memory
+between or around its passes; on the CPU its plain twin, K2's plain passes
+with torch transposes.  The reference gates its kernel at 512 points; on
+the card the gate is dropped, since an eager plain stage costs dozens of
+launches (a field multiply alone is ~30).
 
-`lde` and `coset_intt` from 2^15 points are K2c's own entries (`lde_t`,
-`coset_intt_t`): the zero padding, the coset factors and the iNTT's scale
-ride inside the kernel's two passes, where below 2^15 they are the torch
-compositions around K2 written out here.
+`lde` and `coset_intt` are the kernels' own entries at every size: K2's
+`lde_rows` and `coset_intt_rows` up to 2^14 points, K2c's `lde_t` and
+`coset_intt_t` above.  The zero padding, the coset factors and the iNTT's
+scale ride inside the kernels' loads and stores.  Inputs of any strides
+are taken: the flattening to (R, n) copies a non-contiguous one, where
+`reshape` alone would return a strided view that the kernels refuse.
 """
 
 from __future__ import annotations
@@ -26,13 +28,14 @@ from functools import lru_cache
 import torch
 
 from mp2_tpu_torch.field import goldilocks as gl
-from mp2_tpu_torch.field.goldilocks import P
 from mp2_tpu_torch.ops.ntt_cuda import (  # noqa: F401  (re-exported tables)
     MAX_LOG_N,
     _bitrev_indices,
     _bitrev_t,
     _power_table,
     _root_of_unity,
+    coset_intt_rows,
+    lde_rows,
     ntt_rows,
 )
 from mp2_tpu_torch.ops.ntt_t_cuda import coset_intt_t, lde_t, ntt_four_step_t
@@ -62,9 +65,9 @@ def _ntt_small(x: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 
 def _ntt_four_step(x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """The four-step over all rows of a contiguous (..., n) tensor."""
+    """The four-step over all rows of a (..., n) tensor."""
     n = x.shape[-1]
-    return ntt_four_step_t(x.view(-1, n), inverse).view(x.shape)
+    return ntt_four_step_t(x.reshape(-1, n).contiguous(), inverse).reshape(x.shape)
 
 
 def intt(x: torch.Tensor) -> torch.Tensor:
@@ -80,9 +83,8 @@ def coset_ntt(coeffs: torch.Tensor, shift: int = gl.MULTIPLICATIVE_GROUP_GENERAT
 def coset_intt(evals: torch.Tensor, shift: int = gl.MULTIPLICATIVE_GROUP_GENERATOR):
     """Coefficients from evaluations on shift*H (plonky2's coset_ifft)."""
     n = evals.shape[-1]
-    if n.bit_length() - 1 > MAX_LOG_N:
-        return coset_intt_t(evals.view(-1, n), shift).view(evals.shape)
-    return gl.mul(intt(evals), _power_t(pow(shift, P - 2, P), n, evals.device))
+    entry = coset_intt_t if n.bit_length() - 1 > MAX_LOG_N else coset_intt_rows
+    return entry(evals.reshape(-1, n).contiguous(), shift).reshape(evals.shape)
 
 
 def lde(coeffs: torch.Tensor, rate_bits: int,
@@ -90,7 +92,6 @@ def lde(coeffs: torch.Tensor, rate_bits: int,
     """Low-degree extension: zero-pad to n*2^rate_bits, evaluate on shift*H."""
     n = coeffs.shape[-1]
     big = n << rate_bits
-    if big.bit_length() - 1 > MAX_LOG_N:
-        return lde_t(coeffs.view(-1, n), rate_bits, shift).view(coeffs.shape[:-1] + (big,))
-    pad = gl.zeros(tuple(coeffs.shape[:-1]) + (big - n,), coeffs.device)
-    return coset_ntt(torch.cat([coeffs, pad], dim=-1), shift)
+    entry = lde_t if big.bit_length() - 1 > MAX_LOG_N else lde_rows
+    rows = coeffs.reshape(-1, n).contiguous()
+    return entry(rows, rate_bits, shift).reshape(coeffs.shape[:-1] + (big,))

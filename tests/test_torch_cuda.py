@@ -1,4 +1,4 @@
-"""K1, K2, K2c, P1 and the batched prover on a CUDA card.  These tests skip where there is
+"""K1, K2 (and its entries), K2c, P1 and the batched prover on a CUDA card.  These tests skip where there is
 no card.  The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
@@ -56,7 +56,7 @@ def test_kernel_matches_plain_and_host(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_n", [1, 7, 11, 13, 14])
+@pytest.mark.parametrize("log_n", list(range(1, 15)))
 def test_ntt_kernel_matches_plain(cuda, log_n):
     """K2 against its plain version, bit for bit, with every flag."""
     rng = np.random.default_rng(log_n)
@@ -75,6 +75,24 @@ def test_ntt_kernel_matches_plain(cuda, log_n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("log_n", list(range(1, 15)))
+def test_ntt_entries_match_plain(cuda, log_n):
+    """K2's LDE (rates 1 and 3) and coset-iNTT entries against their plain
+    twins, bit for bit, one launch each; a coset iNTT undoes an LDE."""
+    rng = np.random.default_rng(100 + log_n)
+    x = gl.from_u64(rng.integers(0, gl.P, size=(7, 1 << log_n), dtype=np.uint64), cuda)
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    before = N.ntt_rows.launches
+    assert torch.equal(N.coset_intt_rows(x, shift), N.coset_intt_rows_plain(x, shift))
+    assert N.ntt_rows.launches == before + 1
+    for rate in (1, 3) if log_n >= 3 else (1,):
+        c = x[:, : 1 << (log_n - rate)].contiguous()
+        evals = N.lde_rows(c, rate, shift)
+        assert torch.equal(evals, N.lde_rows_plain(c, rate, shift))
+        assert torch.equal(N.coset_intt_rows(evals, shift)[:, : c.shape[1]], c)
+
+
+@pytest.mark.cuda
 def test_four_step_on_card_matches_cpu(cuda):
     """The four-step NTT at 2^15 (two K2c launches) equals the CPU's."""
     x = np.random.default_rng(15).integers(0, gl.P, size=(2, 1 << 15), dtype=np.uint64)
@@ -83,6 +101,27 @@ def test_four_step_on_card_matches_cpu(cuda):
         got = ntt.ntt(gl.from_u64(x, cuda), inverse)
         assert T.ntt_four_step_t.launches == before + 2
         assert torch.equal(got.cpu(), ntt.ntt(gl.from_u64(x, "cpu"), inverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [13, 15])
+def test_prover_ntt_takes_strided_input_on_card(cuda, log_n):
+    """2-D strided views (a column slice of wider rows, every other row)
+    through prover/ntt's ntt, intt, lde and coset_intt on K2 (2^13) and K2c
+    (2^15), equal to their contiguous copies: `reshape` alone keeps such a
+    view strided, and the kernels refuse it."""
+    rng = np.random.default_rng(200 + log_n)
+    n = 1 << log_n
+    wide = gl.from_u64(rng.integers(0, gl.P, size=(6, 2 * n), dtype=np.uint64), cuda)
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    for x in (wide[:, :n], wide[::2, n:]):
+        assert not x.is_contiguous()
+        xc = x.contiguous()
+        c = x[:, : n >> 3]
+        assert torch.equal(ntt.ntt(x), ntt.ntt(xc))
+        assert torch.equal(ntt.intt(x), ntt.intt(xc))
+        assert torch.equal(ntt.lde(c, 3, shift), ntt.lde(c.contiguous(), 3, shift))
+        assert torch.equal(ntt.coset_intt(x, shift), ntt.coset_intt(xc, shift))
 
 
 @pytest.mark.cuda
@@ -98,10 +137,30 @@ def test_four_step_kernel_matches_plain(cuda, log_n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_n", [5, 21])
+@pytest.mark.parametrize("log_n", [5, 31])
 def test_four_step_kernel_refuses_sizes_it_does_not_take(cuda, log_n):
+    # a broadcast view: the size is refused before the kernel reads a word
+    x = torch.zeros((1, 1), dtype=torch.int64, device=cuda).expand(1, 1 << log_n)
     with pytest.raises(ValueError, match="takes rows of"):
-        T.ntt_four_step_t(torch.zeros((1, 1 << log_n), dtype=torch.int64, device=cuda), False)
+        T.ntt_four_step_t(x, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [21, 22])
+def test_four_step_kernel_above_2_20_matches_plain(cuda, log_n):
+    """K2c's three passes against the plain twin, bit for bit: the
+    transform both ways, the LDE (rate 3) and the coset iNTT, through
+    prover/ntt."""
+    rng = np.random.default_rng(log_n)
+    x = gl.from_u64(rng.integers(0, gl.P, size=(2, 1 << log_n), dtype=np.uint64), cuda)
+    shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
+    for inverse in (False, True):
+        before = T.ntt_four_step_t.launches
+        assert torch.equal(ntt.ntt(x, inverse), T.ntt_four_step_plain(x, inverse))
+        assert T.ntt_four_step_t.launches == before + 3
+    c = x[:, : 1 << (log_n - 3)].contiguous()
+    assert torch.equal(ntt.lde(c, 3, shift), T.lde_t_plain(c, 3, shift))
+    assert torch.equal(ntt.coset_intt(x, shift), T.coset_intt_t_plain(x, shift))
 
 
 @pytest.mark.cuda

@@ -303,3 +303,106 @@ def test_lde_and_coset_intt_wrappers_refuse_devices_without_the_kernel():
         T.lde_t(x, 3, SHIFT)
     with pytest.raises(ValueError, match="no four-step NTT kernel"):
         T.coset_intt_t(x, SHIFT)
+
+
+# ---------------------------------------------------------------------------
+# Strided input, K2's entries, the nested four-step and the vectorised tables
+# ---------------------------------------------------------------------------
+
+
+def test_prover_ntt_takes_strided_input_from_2_15():
+    """A (2, 3, 2^15) tensor made by a transpose goes through ntt, intt, lde
+    (from 2^12 coefficients, rate 3) and coset_intt like its contiguous copy
+    (the four-step's flattening copies it), and ntt equals mp2_tpu's."""
+    base = _rand(970, (3, 2, 1 << 15))
+    x = gl.from_u64(base, "cpu").transpose(0, 1)
+    assert not x.is_contiguous()
+    xc = x.contiguous()
+    c = x[..., : 1 << 12]
+    assert torch.equal(ntt.ntt(x), ntt.ntt(xc))
+    assert torch.equal(ntt.intt(x), ntt.intt(xc))
+    assert torch.equal(ntt.lde(c, 3, SHIFT), ntt.lde(c.contiguous(), 3, SHIFT))
+    assert torch.equal(ntt.coset_intt(x, SHIFT), ntt.coset_intt(xc, SHIFT))
+    want = jgl.to_u64(jntt.ntt(jgl.from_u64(np.ascontiguousarray(base.transpose(1, 0, 2)))))
+    np.testing.assert_array_equal(gl.to_u64(ntt.ntt(x)), want)
+
+
+@pytest.mark.parametrize("log_big, rate", [(4, 1), (7, 3), (10, 2)])
+def test_k2_entry_twins_match_reference(log_big, rate):
+    """lde_rows_plain and coset_intt_rows_plain (K2's entries' plain twins)
+    against mp2_tpu.prover.ntt.lde and coset_intt, 2^4 to 2^10 points; the
+    prover's lde and coset_intt below 2^15 points are these entries."""
+    coeffs = _rand(980 + log_big, (2, 1 << (log_big - rate)))
+    want = jgl.to_u64(jntt.lde(jgl.from_u64(coeffs), rate, SHIFT))
+    c = gl.from_u64(coeffs, "cpu")
+    np.testing.assert_array_equal(gl.to_u64(N.lde_rows_plain(c, rate, SHIFT)), want)
+    evals = _rand(990 + log_big, (2, 1 << log_big))
+    want_c = jgl.to_u64(jntt.coset_intt(jgl.from_u64(evals), SHIFT))
+    e = gl.from_u64(evals, "cpu")
+    np.testing.assert_array_equal(gl.to_u64(N.coset_intt_rows_plain(e, SHIFT)), want_c)
+    calls = []
+    orig = (ntt.lde_rows, ntt.coset_intt_rows)
+    ntt.lde_rows = lambda *a: calls.append("lde") or orig[0](*a)
+    ntt.coset_intt_rows = lambda *a: calls.append("coset_intt") or orig[1](*a)
+    try:
+        np.testing.assert_array_equal(gl.to_u64(ntt.lde(c[None], rate, SHIFT))[0], want)
+        np.testing.assert_array_equal(gl.to_u64(ntt.coset_intt(e, SHIFT)), want_c)
+    finally:
+        ntt.lde_rows, ntt.coset_intt_rows = orig
+    assert calls == ["lde", "coset_intt"]
+
+
+@pytest.mark.parametrize("log_n, max_log_l", [(9, 3), (8, 2)])
+def test_nested_four_step_plain_matches_reference(log_n, max_log_l):
+    """ntt_four_step_plain cut into passes of at most 2^max_log_l points
+    (three and four passes: the decomposition K2c runs above 2^20 points)
+    against mp2_tpu.prover.ntt's ntt and intt."""
+    x = _rand(1000 + log_n, (2, 1 << log_n))
+    assert len(T.passes(log_n, max_log_l)) == -(-log_n // max_log_l) > 2
+    t = gl.from_u64(x, "cpu")
+    for inverse, ref in ((False, jntt.ntt), (True, jntt.intt)):
+        got = gl.to_u64(T.ntt_four_step_plain(t, inverse, max_log_l=max_log_l))
+        np.testing.assert_array_equal(got, jgl.to_u64(ref(jgl.from_u64(x))))
+
+
+def test_passes_reach_2_30_in_three():
+    """Two passes up to 2^20 (floor(log n / 2) points, then the rest),
+    three from 2^21 to 2^30, each at most 2^10 points."""
+    for log_n in range(T.MIN_LOG_N, T.MAX_LOG_N + 1):
+        lens = T.passes(log_n)
+        assert sum(lens) == log_n and max(lens) <= T.MAX_LOG_L
+        assert len(lens) == (2 if log_n <= 20 else 3)
+        if len(lens) == 2:
+            assert lens == [log_n // 2, log_n - log_n // 2]
+
+
+def test_vectorised_tables_equal_the_loop():
+    """The tables built by doubling equal the power loops they replaced:
+    _power_table, the four-step middle twiddles (w^(j*k) as (n / n1, n1))
+    and K2's pass twiddles (w_{Ns R}^(r*k) at (r - 1) * Ns + k)."""
+    base = 0x123456789ABCDEF
+    loop, cur = [], 1
+    for _ in range(37):
+        loop.append(cur)
+        cur = cur * base % P
+    assert [int(v) for v in N._power_table(base, 37)] == loop
+    for log_n, inverse in ((6, False), (9, True), (21, False)):
+        log_l = T.passes(log_n)[0] if log_n < 21 else 3
+        w = pow(N._root_of_unity(log_n), P - 2 if inverse else 1, P)
+        rows = 1 << (log_n - log_l)
+        got = gl.to_u64(T._pass_twiddles(log_n, log_l, inverse, "cpu"))
+        assert got.shape == (rows, 1 << log_l)
+        for j in (0, 1, rows // 3, rows - 1):
+            assert [int(v) for v in got[j]] == [pow(w, j * k, P) for k in range(1 << log_l)]
+    for log_n in (5, 13):
+        table = [int(v) for v in gl.to_u64(N._pass_table(log_n, True, "cpu"))]
+        off, log_ns = 0, 0
+        for i, lr in enumerate(N._radices(log_n)):
+            if i:
+                w = pow(N._root_of_unity(log_ns + lr), P - 2, P)
+                for r in range(1, 1 << lr):
+                    seg = table[off + ((r - 1) << log_ns): off + (r << log_ns)]
+                    assert seg == [pow(w, r * k, P) for k in range(1 << log_ns)]
+                off += ((1 << lr) - 1) << log_ns
+            log_ns += lr
+        assert off == len(table)

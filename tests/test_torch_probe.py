@@ -47,6 +47,7 @@ def _reference_chain(op, k, a, b):
     t = jnp.asarray(((b >> np.uint64(32)) * np.uint64(64) + (b & M32)) % np.uint64(192),
                     dtype=jnp.uint32)
     t_warp = jnp.asarray(((np.arange(a.size) >> 5) * 131) % 192, dtype=jnp.uint32)
+    op = op.removesuffix("_sel")  # the compare-and-select forms: the lazy ops' residues
     for r in range(k):
         if op in ("mul", "mul_lazy"):
             lo, hi = (K.mul if op == "mul" else K.mul_lazy)(lo, hi, blo, bhi)

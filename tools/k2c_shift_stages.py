@@ -49,7 +49,7 @@ def _substitute(text: str, pairs) -> str:
 def build_variant() -> ctypes.CDLL:
     out = _nvcc.BUILD_DIR / "k2c_shift_stages"
     out.mkdir(parents=True, exist_ok=True)
-    stages = _substitute((_nvcc.CSRC / "ntt_stages.cuh").read_text(), [
+    kernel = _substitute((_nvcc.CSRC / "ntt_t.cu").read_text(), [
         ("""                                            const uint64_t* __restrict__ stage_tw) {
   return gl::mul_lazy(x, stage_tw[(1 << (s - 1)) - 1 + j]);""",
          """                                            const uint64_t* __restrict__ stage_tw,
@@ -68,19 +68,17 @@ def build_variant() -> ctypes.CDLL:
         ("twiddle(a3, s, j, stage_tw)", "twiddle(a3, s, j, stage_tw, roots)"),
         ("twiddle(b2, s + 1, j, stage_tw)", "twiddle(b2, s + 1, j, stage_tw, roots)"),
         ("twiddle(b3, s + 1, j + h, stage_tw)", "twiddle(b3, s + 1, j + h, stage_tw, roots)"),
+        ("""                int log_d, int post_shift) {""",
+         """                int log_d, int post_shift, uint64_t roots) {"""),
+        ("ntt::dit_stages(sh, tile, log_tile, log_l, stride, stage_tw);",
+         "ntt::dit_stages(sh, tile, log_tile, log_l, stride, stage_tw, roots);"),
+        ("""                            unsigned long long scale, int log_d, int post_shift,
+                            void* stream) {""",
+         """                            unsigned long long scale, int log_d, int post_shift,
+                            unsigned long long roots, void* stream) {"""),
+        ("(uint64_t)scale, log_d, post_shift);",
+         "(uint64_t)scale, log_d, post_shift, (uint64_t)roots);"),
     ])
-    kernel = _substitute((_nvcc.CSRC / "ntt_t.cu").read_text(), [
-        ('#include "ntt_stages.cuh"', '#include "ntt_stages_shift.cuh"'),
-        ("""                int transpose_out) {""",
-         """                int transpose_out, uint64_t roots) {"""),
-        ("ntt::dit_stages<true>(sh, tile, log_tile, log_l, stride, stage_tw);",
-         "ntt::dit_stages<true>(sh, tile, log_tile, log_l, stride, stage_tw, roots);"),
-        ("""                            int transpose_out, void* stream) {""",
-         """                            int transpose_out, unsigned long long roots,
-                            void* stream) {"""),
-        ("(uint64_t)scale, transpose_out);", "(uint64_t)scale, transpose_out, (uint64_t)roots);"),
-    ])
-    (out / "ntt_stages_shift.cuh").write_text(stages)
     (out / "ntt_t_shift.cu").write_text(kernel)
     so = out / "libk2c_shift.so"
     cmd = [_nvcc.nvcc(), *_nvcc.NVCC_FLAGS, "-I", str(out), "-I", str(_nvcc.CSRC),
@@ -97,7 +95,7 @@ def build_variant() -> ctypes.CDLL:
     lib.mp2_ntt_cols.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
-        ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p]
     lib.mp2_ntt_cols.restype = ctypes.c_int
     return lib
 
@@ -114,22 +112,25 @@ def root_exponents(log_l: int, inverse: bool) -> int:
 
 
 def variant_passes(lib, x, log_n, inverse, log_in, pre):
-    """The two passes of T._launch_passes on the variant kernel."""
+    """The two passes of T._launch_passes (up to 2^20 points) on the
+    variant kernel."""
     dev, B = x.device, x.shape[0]
     n = 1 << log_n
-    log1, log2 = T.split(log_n)
+    log1, log2 = T.passes(log_n)
     a = torch.empty((B, n), dtype=torch.int64, device=dev)
     out = torch.empty((B, n), dtype=torch.int64, device=dev)
     scale = pow(n, P - 2, P) if inverse else 0
+    # the first pass written transposed (log_d 0), the second in place
     passes = ((x, a, log1, log2, log_in - log2, pre, _stage_table(log1, inverse, dev),
-               T._four_step_twiddles(log_n, inverse, dev), 0, 1),
-              (a, out, log2, log1, log2, None, _stage_table(log2, inverse, dev), None, scale, 0))
+               T._four_step_twiddles(log_n, inverse, dev), 0, 0),
+              (a, out, log2, log1, log2, None, _stage_table(log2, inverse, dev), None, scale,
+               log1))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for src, dst, log_l, log_m, log_l_in, pre_t, table, post, sc, transpose in passes:
+    for src, dst, log_l, log_m, log_l_in, pre_t, table, post, sc, log_d in passes:
         rc = lib.mp2_ntt_cols(src.data_ptr(), dst.data_ptr(), B, log_l, log_m, log_l_in,
                               pre_t.data_ptr() if pre_t is not None else None,
                               table.data_ptr(), post.data_ptr() if post is not None else None,
-                              sc, transpose, root_exponents(log_l, inverse), stream)
+                              sc, log_d, 0, root_exponents(log_l, inverse), stream)
         if rc != 0:
             raise RuntimeError(f"variant launch failed: CUDA error {rc}")
     return out
