@@ -39,24 +39,32 @@ drives three paths:
   and the same framework at `CircuitConfig()` (set digest and standard n
   checked, 2 leaves + 1 aggregation proved and the root verified);
 
-  the verifiable DB's row update: `vdb/circuits.VerifiableDbCircuits` (the
-  cells and rows sets) at `test_config()` and `CircuitConfig()`, set and
-  member digests, standard n and wrap chains checked against
-  `mp2_tpu_torch/testdata/vdb_golden.json`; the 2-cell -> `rows_leaf`
-  chain proved and its envelopes checked against the JAX proofs; then one
-  block that inserts VDB_ROWS rows of VDB_COLUMNS cells into an empty rows
-  tree: every cells tree level by level across rows, then the rows tree's
-  update plan through `parallel/scheduler.MapReduceScheduler`, each ready
-  group of same-circuit nodes in one batched call; the root verified and
-  its public inputs held against the host model, printed as
-  `vdb_row_update_proofs_per_s`; and the sets and the chain at
-  `CircuitConfig()`, verified.
+  the verifiable DB: `vdb/circuits.VerifiableDbCircuits` (the cells,
+  rows, block and IVC sets) at `test_config()` and `CircuitConfig()`, set
+  and member digests, standard n and wrap chains checked against
+  `mp2_tpu_torch/testdata/vdb_golden.json`; the 2-cell -> `rows_leaf` ->
+  `block_leaf` -> `ivc_first` chain proved and its envelopes checked
+  against the JAX proofs; then one block that inserts VDB_ROWS rows of
+  VDB_COLUMNS cells into an empty rows tree: every cells tree level by
+  level across rows, then the rows tree's update plan through
+  `parallel/scheduler.MapReduceScheduler`, each ready group of
+  same-circuit nodes in one batched call; the root verified and its public
+  inputs held against the host model, printed as
+  `vdb_row_update_proofs_per_s`; then BLOCKS blocks appended to an empty
+  block tree over that rows root, each block's block-tree update plan
+  drained bottom-up (`block_leaf`, `block_parent` with and without a right
+  child) and followed by an IVC step (`ivc_first`, then `ivc_subsequent`),
+  every block-tree root and IVC proof verified and held against the host
+  model, printed as `vdb_block_ivc_proofs_per_s`; and the sets and the
+  chain at `CircuitConfig()`, verified.
 
-The timed phases (kernel times, tree-node batches, the reduce tree, the row
-update) run alone on the card.  The production vdb sets, whose set-up is
-host-bound Python, run in a second process of this script (`--vdb-production`)
-beside the untimed recursion production and light vdb set-up; the script
-waits for it, prints its output and fails with it.
+The kernel times, the tree-node batches, the row update and the
+block-tree path run alone on the card.  The production vdb sets, whose
+set-up is host-bound Python with short bursts on the card, run in a second
+process of this script (`--vdb-production`) from the end of the tree-node
+timing, beside the recursion and the light vdb set-up; the script waits
+for it before the row update, prints its output and fails with it.  Each
+phase prints its wall.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched.  Any
@@ -101,7 +109,9 @@ from mp2_tpu_torch.recursion.tp2_backend import _build_tree_node, tree_node_batc
 from mp2_tpu_torch.ryhope.updatetree import UpdateTree
 from mp2_tpu_torch.utils import trace
 from mp2_tpu_torch.vdb import circuits as V
-from mp2_tpu_torch.vdb.trees import Cell, RowPayload, build_cells_tree, new_row_tree
+from mp2_tpu_torch.vdb import digests as D
+from mp2_tpu_torch.vdb.trees import (BlockPayload, Cell, RowPayload, build_cells_tree,
+                                     new_block_tree, new_row_tree)
 
 TESTDATA = os.path.join("mp2_tpu_torch", "testdata")
 LIGHT_BATCH = 32
@@ -219,6 +229,14 @@ def _plain_k2():
     finally:
         for name, fn in saved.items():
             setattr(ntt, name, fn)
+
+
+def _phase(name, fn, *args):
+    """Run one phase and print its wall."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def _reset_counts():
@@ -370,10 +388,12 @@ def phase_k1_merkle(card):
     rng = np.random.default_rng(4)
     dev = torch.device("cuda")
     # wire trees of a B=16 wrap batch (2^13 rows, LDE 2^16) and a B=8
-    # aggregation batch (2^14 rows, LDE 2^17) at test_config (cap 1), and of
-    # a light tree-node batch (B=32, 16 rows, LDE 128 points)
+    # aggregation batch (2^14 rows, LDE 2^17) at test_config (cap 1), of
+    # one rows or block_leaf member (2^15 rows, LDE 2^18) and one
+    # block_parent (2^16 rows, LDE 2^19), and of a light tree-node batch
+    # (B=32, 16 rows, LDE 128 points)
     shapes = [(f"tree ({batch}*{WIRES}, 2^{log_m})", batch, log_m, 1)
-              for batch, log_m in ((16, 16), (8, 17), (LIGHT_BATCH, 7))]
+              for batch, log_m in ((16, 16), (8, 17), (1, 18), (1, 19), (LIGHT_BATCH, 7))]
     timings, err = {}, 0
     for name, batch, log_m, cap in shapes:
         m = 1 << log_m
@@ -664,14 +684,16 @@ def phase_k2c(card):
         del x
         torch.cuda.empty_cache()
 
-    # the LDE and coset-iNTT entries at the slice's shapes (rate 3: the
-    # coefficients of 2^13, 2^14, 2^15 rows; the quotient's coset iNTT of a
-    # B=16 and a B=8 batch, 2 challenges), against their plain twins and
-    # the compositions they replaced (pad + plain coset multiply + K2c)
+    # the LDE and coset-iNTT entries at the paths' shapes (rate 3: the
+    # coefficients of 2^13, 2^14, 2^15 rows and of a 2^16-row block_parent;
+    # the quotient's coset iNTT of a B=16 and a B=8 batch and of one
+    # block_leaf and one block_parent, 2 challenges), against their plain
+    # twins and the compositions they replaced (pad + plain coset multiply
+    # + K2c)
     entries = [(f"LDE ({batch}*{WIRES}, 2^{log_n - 3} -> 2^{log_n})", batch * WIRES,
-                log_n, "lde") for batch, log_n in ((16, 16), (8, 17), (1, 18))]
+                log_n, "lde") for batch, log_n in ((16, 16), (8, 17), (1, 18), (1, 19))]
     entries += [(f"coset iNTT ({batch}*2, 2^{log_n})", batch * 2, log_n, "coset_intt")
-                for batch, log_n in ((16, 16), (8, 17))]
+                for batch, log_n in ((16, 16), (8, 17), (1, 18), (1, 19))]
     shift = gl.MULTIPLICATIVE_GROUP_GENERATOR
     for name, rows, log_n, kind in entries:
         if kind == "lde":
@@ -980,11 +1002,16 @@ VDB_ROWS = 8  # rows inserted by one block
 VDB_COLUMNS = 3  # value columns of the table (cells per row)
 SECONDARY_ID = 10  # column identifiers of the table
 COLUMN_IDS = (11, 12, 13)
+VDB_SETS = ("cells", "rows", "block", "ivc")
+BLOCKS = 3  # blocks appended to the block tree over the row update's table
+BLOCK_INDEX_ID = 14  # column identifier of the block number
+METADATA_INPUTS = (1, 2, 3)  # the IVC metadata hash is H(1, 2, 3)
 
 
 def _vdb_sets(name, vdb, golden):
-    """Check both sets of `vdb` against the golden record of the JAX package."""
-    for set_name in ("cells", "rows"):
+    """Check the four sets of `vdb` against the golden record of the JAX
+    package."""
+    for set_name in VDB_SETS:
         fw, g = getattr(vdb, set_name), golden[set_name]
         chains = {m: [fw.members[m].data.n] + [wc.data.n for wc in
                                                fw._wrap_chain_for(fw.members[m].data)]
@@ -997,15 +1024,15 @@ def _vdb_sets(name, vdb, golden):
         for m in fw.member_order:
             if list(fw.members[m].digest) != g["member_digests"][m]:
                 _fail(f"{name} {set_name}: member {m}'s digest differs from the JAX package's")
-    print(f"{name}: cells and rows set digests ({vdb.cells.set_digest[0]:#x}..., "
-          f"{vdb.rows.set_digest[0]:#x}...), standard n, member digests and wrap "
-          f"chains equal to the JAX package's")
+    digests = ", ".join(f"{getattr(vdb, s).set_digest[0]:#x}..." for s in VDB_SETS)
+    print(f"{name}: cells, rows, block and IVC set digests ({digests}), standard n, "
+          f"member digests and wrap chains equal to the JAX package's")
 
 
 def _row_chain(vdb, cells_values, secondary, rud, key):
     """A cells tree proved by prove_cells_tree, then rows_leaf over it (the
-    serial path); returns every envelope in proving order and the rows leaf's
-    public inputs."""
+    serial path); returns every envelope in proving order, the rows leaf's
+    public inputs and its payload."""
     proved = []
     prove_member = vdb.cells._prove_member
 
@@ -1027,7 +1054,33 @@ def _row_chain(vdb, cells_values, secondary, rud, key):
     pis = V.rows_pi_values(payload)
     row_env = vdb.rows.prove_aggregation(
         "rows_leaf", [], (payload.secondary, rud), pis, foreign_children=[cells_env])
-    return proved + [row_env], pis
+    return proved + [row_env], pis, payload
+
+
+def _rows_digest(rows):
+    """The block's rows digest of a rows-tree root payload (no merge)."""
+    return D.compute_final_digest(False, rows.individual_vd, rows.multiplier_vd,
+                                  rows.multiplier_cnt)
+
+
+def _block_ivc_chain(vdb, g, rows, rows_env):
+    """block_leaf over a rows root (the golden chain's index id and block
+    number), then ivc_first over it with the metadata hash H(golden inputs),
+    on the serial path; returns both envelopes and their public inputs."""
+    number, index_id = g["block_number"], g["block_index_id"]
+    db = new_block_tree()
+    db.in_transaction(lambda t: t.store(number, BlockPayload(
+        index_id=index_id, block_number=number, rows_hash=rows.hash,
+        rows_digest=_rows_digest(rows))))
+    block = db.payload(number)
+    block_pis = V.block_pi_values(block)
+    block_env = vdb.block.prove_aggregation(
+        "block_leaf", [], (index_id, number, False), block_pis, foreign_children=[rows_env])
+    md = p2h.hash_no_pad(list(g["ivc_metadata_inputs"]))
+    ivc_pis = V.ivc_pi_values(block.hash, md, number)
+    ivc_env = vdb.ivc.prove_aggregation(
+        "ivc_first", [], (md, number), ivc_pis, foreign_children=[block_env])
+    return [block_env, ivc_env], [block_pis, ivc_pis]
 
 
 def _vdb_table(seed):
@@ -1120,29 +1173,39 @@ def _prove_row_update(vdb, db, plan):
 
 
 def phase_vdb_light(card, dev, golden):
-    """The cells and rows sets at test_config() against the golden digests
-    and the golden 2-cell -> rows_leaf chain; returns the sets."""
+    """The four sets at test_config() against the golden digests and the
+    golden 2-cell -> rows_leaf -> block_leaf -> ivc_first chain; returns the
+    sets."""
     t0 = time.perf_counter()
     vdb = V.VerifiableDbCircuits(test_config(), device=dev)
-    print(f"vdb light (test_config): both sets built and finalized in "
+    print(f"vdb light (test_config): the four sets built and finalized in "
           f"{time.perf_counter() - t0:.3f} s on the host and the card")
     _vdb_sets("vdb light", vdb, golden["light"])
 
     g = golden["chain"]
     t0 = time.perf_counter()
-    envs, pis = _row_chain(vdb, g["cells"], g["secondary"], tuple(g["row_unique_data"]),
-                           tuple(g["row_key"]))
+    envs, pis, rows = _row_chain(vdb, g["cells"], g["secondary"],
+                                 tuple(g["row_unique_data"]), tuple(g["row_key"]))
+    upper, upper_pis = _block_ivc_chain(vdb, g, rows, envs[-1])
     torch.cuda.synchronize()
     got = [proof_sha256(proof_to_dict(e.proof)) for e in envs]
+    got_upper = [proof_sha256(proof_to_dict(e.proof)) for e in upper]
     if [e.member for e in envs] != g["members"] or pis != g["rows_leaf_public_inputs"]:
         _fail(f"vdb chain: members {[e.member for e in envs]} or rows_leaf PIs differ")
-    if got != g["proof_sha256"]:
-        _fail(f"vdb chain: envelope proofs differ from the JAX golden digests: {got}")
-    if not (vdb.cells.verify(envs[-2]) and vdb.rows.verify(envs[-1])):
-        _fail("vdb chain: fw.verify rejected the cells root or the rows leaf")
-    print(f"vdb chain: {' -> '.join(g['members'])} in {time.perf_counter() - t0:.3f} s "
+    if ([e.member for e in upper] != g["block_ivc_members"]
+            or upper_pis != [g["block_leaf_public_inputs"], g["ivc_first_public_inputs"]]):
+        _fail(f"vdb chain: members {[e.member for e in upper]} or block/IVC PIs differ")
+    if got != g["proof_sha256"] or got_upper != g["block_ivc_proof_sha256"]:
+        _fail(f"vdb chain: envelope proofs differ from the JAX golden digests: "
+              f"{got + got_upper}")
+    if not (vdb.cells.verify(envs[-2]) and vdb.rows.verify(envs[-1])
+            and vdb.block.verify(upper[0]) and vdb.ivc.verify(upper[1])):
+        _fail("vdb chain: fw.verify rejected the cells root, the rows leaf, the block "
+              "leaf or the IVC proof")
+    members = g["members"] + g["block_ivc_members"]
+    print(f"vdb chain: {' -> '.join(members)} in {time.perf_counter() - t0:.3f} s "
           f"(serial prove, first use of each shape); envelope proofs equal to the JAX "
-          f"golden digests ({', '.join(d[:12] for d in got)}); verified")
+          f"golden digests ({', '.join(d[:12] for d in got + got_upper)}); verified")
     return vdb
 
 
@@ -1189,30 +1252,137 @@ def phase_vdb_update(card, vdb, launches):
     for st in log.stages:
         print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
               f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
+    return counts, db, root
+
+
+def _prove_block_plan(vdb, block_db, plan, rows_env, envs):
+    """A block-tree update plan bottom-up (the reference's
+    `_prove_block_plan`, models/circuit_pipeline.py:311-340, without the
+    extraction-bound members): a leaf, or a parent over its left child and
+    its right child or, where there is none, the left one again; every node
+    verifies its own rows root.  Each node is a batch of one; returns the
+    (key, member) of each node in proving order."""
+    nodes = []
+    for key in plan.into_workplan():
+        l, r = block_db.tree.children(key)
+        payload = block_db.payload(key)
+        args = (payload.index_id, payload.block_number)
+        if l is None and r is None:
+            name, kids = "block_leaf", []
+        else:
+            name, kids = "block_parent", [envs[l], envs[r if r is not None else l]]
+            args += (r is not None,)
+        (envs[key],) = vdb.block.prove_aggregations_batch(
+            name, [kids], [args + (False,)], [V.block_pi_values(payload)],
+            foreign_children_list=[[rows_env]])
+        nodes.append((key, name))
+    return nodes
+
+
+def phase_vdb_block_ivc(card, vdb, rows_db, rows_env, launches):
+    """BLOCKS blocks appended to an empty block tree over the row update's
+    rows root (the table changes in no row, so no rows proof is re-run):
+    each block's block-tree plan drained bottom-up, then an IVC step over
+    the new block-tree root; timed, every root verified and held against
+    the host model."""
+    rows = rows_db.payload(rows_db.root())
+    md = p2h.hash_no_pad(list(METADATA_INPUTS))
+    block_db = new_block_tree()
+    envs, ivc, proved, blocks, roots = {}, None, [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["MP2_TRACE"] = "1"  # the runtime's spans, one stderr line each
+    _reset_counts()
+    with _StageLog() as log:
+        t0 = time.perf_counter()
+        for number in range(1, BLOCKS + 1):
+            tb, first_stage = time.perf_counter(), len(log.stages)
+            trace.reset()
+            plan = block_db.in_transaction(lambda t: t.store(number, BlockPayload(
+                index_id=BLOCK_INDEX_ID, block_number=number, rows_hash=rows.hash,
+                rows_digest=_rows_digest(rows))))
+            nodes = _prove_block_plan(vdb, block_db, plan, rows_env, envs)
+            root = block_db.payload(block_db.root())
+            ivc_pis = V.ivc_pi_values(root.hash, md, number)
+            if ivc is None:
+                (ivc,) = vdb.ivc.prove_aggregations_batch(
+                    "ivc_first", [[]], [(md, number)], [ivc_pis],
+                    foreign_children_list=[[envs[block_db.root()]]])
+            else:
+                (ivc,) = vdb.ivc.prove_aggregations_batch(
+                    "ivc_subsequent", [[ivc]], [(number,)], [ivc_pis],
+                    foreign_children_list=[[envs[block_db.root()]]])
+            torch.cuda.synchronize()
+            wall_b = time.perf_counter() - tb
+            roots.append((envs[block_db.root()], V.block_pi_values(root), ivc, ivc_pis))
+            members = [name for _, name in nodes] + [ivc.member]
+            proved += members
+            prove_s = sum(st["s"] for st in log.stages[first_stage:])
+            wit_s = trace.report().get("witness_batch", (0, 0.0))[1]
+            blocks.append(f"block {number}: plan {[k for k, _ in nodes]}, "
+                          f"{' + '.join(members)} in {wall_b:.3f} s: prove_batch "
+                          f"{prove_s:.3f} s, witness generation {wit_s:.3f} s, other "
+                          f"host work {wall_b - prove_s - wit_s:.3f} s")
+        wall = time.perf_counter() - t0
+    del os.environ["MP2_TRACE"]
+    counts = _read_counts(f"vdb block tree + IVC ({BLOCKS} blocks)", launches)
+    for block_env, block_pis, ivc_env, ivc_pis in roots:
+        if not (vdb.block.verify(block_env) and vdb.ivc.verify(ivc_env)):
+            _fail("vdb: fw.verify rejected a block-tree root or an IVC proof")
+        if (block_env.public_inputs != block_pis + list(vdb.block.set_digest)
+                or ivc_env.public_inputs != ivc_pis + list(vdb.ivc.set_digest)):
+            _fail("vdb: a block-tree root's or an IVC proof's public inputs differ "
+                  "from the host model's")
+    want = ["block_leaf", "ivc_first", "block_parent", "ivc_subsequent",
+            "block_leaf", "block_parent", "ivc_subsequent"]
+    if proved != want:
+        _fail(f"vdb: the block-tree and IVC steps proved {proved}, not {want}")
+    prove_s = sum(st["s"] for st in log.stages)
+    print(f"vdb block tree + IVC: {len(proved)} member proofs ({', '.join(proved)}), "
+          f"each wrapped, in {wall:.3f} s; every block-tree root and IVC proof "
+          f"verified, PIs = the host model's + set digest")
+    print(f"vdb_block_ivc_proofs_per_s {len(proved) / wall:.4f} ({len(proved)} member "
+          f"proofs / {wall:.3f} s wall, wraps included); {card}")
+    for line in blocks:
+        print(f"  {line}")
+    print(f"vdb block tree + IVC time: prove_batch {prove_s:.3f} s "
+          f"({prove_s / wall:.3f}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for st in log.stages:
+        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
+              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
     return counts
 
 
 def phase_vdb_production(card, dev, golden):
-    """The sets at CircuitConfig() against the golden digests, then the
-    2-cell -> rows_leaf chain proved and verified.  Runs in its own process
-    (VDB_PRODUCTION_FLAG), beside untimed phases of the main one."""
+    """The four sets at CircuitConfig() against the golden digests, then the
+    2-cell -> rows_leaf -> block_leaf -> ivc_first chain proved and
+    verified.  Runs in its own process (VDB_PRODUCTION_FLAG), beside the
+    main one's phases from the recursion to the light vdb set-up."""
     t0 = time.perf_counter()
     vdb = V.VerifiableDbCircuits(CircuitConfig(), device=dev)
-    print(f"vdb production (CircuitConfig): both sets built and finalized in "
+    print(f"vdb production (CircuitConfig): the four sets built and finalized in "
           f"{time.perf_counter() - t0:.3f} s, in a second process")
     _vdb_sets("vdb production", vdb, golden["production"])
     g = golden["chain"]
     t0 = time.perf_counter()
-    envs, _ = _row_chain(vdb, g["cells"], g["secondary"], tuple(g["row_unique_data"]),
-                         tuple(g["row_key"]))
+    envs, _, rows = _row_chain(vdb, g["cells"], g["secondary"],
+                               tuple(g["row_unique_data"]), tuple(g["row_key"]))
+    upper, upper_pis = _block_ivc_chain(vdb, g, rows, envs[-1])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if not vdb.rows.verify(envs[-1]):
-        _fail("vdb production: fw.verify rejected the rows leaf")
-    print(f"vdb production chain: {' -> '.join(e.member for e in envs)} in {wall:.3f} s "
-          f"(serial prove, first use of each shape); rows leaf verified; peak device "
-          f"memory of its process {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
-          f"{card}")
+    if not (vdb.rows.verify(envs[-1]) and vdb.block.verify(upper[0])
+            and vdb.ivc.verify(upper[1])):
+        _fail("vdb production: fw.verify rejected the rows leaf, the block leaf or the "
+              "IVC proof")
+    if (upper_pis != [g["block_leaf_public_inputs"], g["ivc_first_public_inputs"]]
+            or upper[0].public_inputs != upper_pis[0] + list(vdb.block.set_digest)
+            or upper[1].public_inputs != upper_pis[1] + list(vdb.ivc.set_digest)):
+        _fail("vdb production: the block leaf's or the IVC proof's PIs differ from the "
+              "host model's")
+    print(f"vdb production chain: {' -> '.join(e.member for e in envs + upper)} in "
+          f"{wall:.3f} s (serial prove, first use of each shape); rows leaf, block leaf "
+          f"and IVC proof verified; peak device memory of its process "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {card}")
 
 
 VDB_PRODUCTION_FLAG = "--vdb-production"
@@ -1220,8 +1390,8 @@ VDB_PRODUCTION_FLAG = "--vdb-production"
 
 def _start_vdb_production():
     """phase_vdb_production in a second process on the same card: its set-up
-    is host-bound Python, so it overlaps the main process's untimed phases.
-    Its output is read when it is joined."""
+    is host-bound Python, so it overlaps the main process's phases from the
+    recursion on.  Its output is read when it is joined."""
     here = os.path.dirname(os.path.abspath(__file__))
     return subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
                              VDB_PRODUCTION_FLAG], cwd=here, stdout=subprocess.PIPE,
@@ -1255,31 +1425,41 @@ def main():
     t_start = time.perf_counter()
     launches = {}
 
-    # timed phases run alone on the card; the production vdb sets (host-bound
-    # set-up) overlap only the untimed recursion production and vdb set-up
-    sass = phase_toolchain(card)
-    p1 = phase_probe(card)
-    k1_err, k1_times = phase_k1(card)
-    k1m_err, k1m_times = phase_k1_merkle(card)
-    k2_err, k2_times = phase_k2(card)
-    k2c_err, k2c_times = phase_k2c(card)
-    light, production = phase_tree_nodes(card, dev, launches)
-    phase_timing(card, {"tree_node_proofs_per_s": light,
-                        "tree_node_proofs_per_s_production": production})
+    # the kernels, the tree-node batches, the row update and the block-tree
+    # path are timed alone on the card; the production vdb process, whose
+    # set-up is host-bound with short bursts on the card, overlaps the
+    # recursion and the light vdb set-up
+    sass = _phase("toolchain", phase_toolchain, card)
+    p1 = _phase("P1 probe", phase_probe, card)
+    k1_err, k1_times = _phase("K1", phase_k1, card)
+    k1m_err, k1m_times = _phase("K1 Merkle entries", phase_k1_merkle, card)
+    k2_err, k2_times = _phase("K2", phase_k2, card)
+    k2c_err, k2c_times = _phase("K2c", phase_k2c, card)
+    torch.cuda.empty_cache()
+    light, production = _phase("tree nodes", phase_tree_nodes, card, dev, launches)
+    _phase("tree-node timing", phase_timing, card,
+           {"tree_node_proofs_per_s": light,
+            "tree_node_proofs_per_s_production": production})
     del light, production
-    phase_recursion_light(card, dev, rgolden["light"], launches)
     torch.cuda.empty_cache()
     vdb_production = _start_vdb_production()
     try:
-        phase_recursion_production(card, dev, rgolden["production"], launches)
+        _phase("recursion light", phase_recursion_light, card, dev, rgolden["light"],
+               launches)
         torch.cuda.empty_cache()
-        vdb = phase_vdb_light(card, dev, vgolden)
+        _phase("recursion production", phase_recursion_production, card, dev,
+               rgolden["production"], launches)
+        torch.cuda.empty_cache()
+        vdb = _phase("vdb light", phase_vdb_light, card, dev, vgolden)
     except BaseException:
         vdb_production.kill()
         vdb_production.wait()
         raise
-    _join_vdb_production(vdb_production)
-    counts = phase_vdb_update(card, vdb, launches)
+    _phase("vdb production (join)", _join_vdb_production, vdb_production)
+    counts, rows_db, rows_root = _phase("vdb row update", phase_vdb_update, card, vdb,
+                                        launches)
+    _phase("vdb block tree + IVC", phase_vdb_block_ivc, card, vdb, rows_db, rows_root,
+           launches)
 
     def by_path(name):
         return {p: c[name] for p, c in launches.items()}

@@ -18,10 +18,8 @@ import numpy as np
 import torch
 
 from mp2_tpu_torch.circuit import gates as G
-from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.prover.config import CircuitConfig
 from mp2_tpu_torch.prover.fri import FriConfig
-from mp2_tpu_torch.prover.merkle import MerkleTree
 from mp2_tpu_torch.prover.prove import CircuitData
 
 
@@ -78,10 +76,5 @@ def circuit_data_from_numpy(
         public_inputs=public_inputs,
         device=device,
     )
-    data.fixed_coeffs = gl.from_u64(np.asarray(fixed_coeffs, dtype=np.uint64), device)
-    data.fixed_lde = gl.from_u64(np.asarray(fixed_lde, dtype=np.uint64), device)
-    levels = [gl.from_u64(np.asarray(l, dtype=np.uint64), device) for l in fixed_levels]
-    cap_h = min(cfg.fri.cap_height, data.log_n)
-    data.fixed_tree = MerkleTree.from_levels(data.fixed_lde, levels, cap_h)
-    data.set_digest()
+    data.set_fixed(fixed_coeffs, fixed_lde, fixed_levels)
     return data

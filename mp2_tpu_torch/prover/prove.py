@@ -12,6 +12,8 @@ through `prover/batch.prove_batch` rather than a second copy of the prover.
 
 from __future__ import annotations
 
+import hashlib
+import os
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Dict, List, Tuple
@@ -146,17 +148,64 @@ class CircuitData:
 
     def _build_fixed(self):
         """iNTT -> coset LDE -> Merkle cap of the fixed columns, and the
-        circuit digest (hash of the cap and the shape)."""
+        circuit digest (hash of the cap and the shape).  When MP2_FIXED_CACHE
+        names a directory, the u64 results are cached there, keyed by a hash
+        of the fixed column values and the FRI shape, and a later compile of
+        the same circuit loads them instead (the reference persists whole
+        `PublicParameters` the same way, mp2-v1/src/api.rs:618-636).  The
+        key, the file and its fields are mp2_tpu's, so either package reads
+        a cache the other wrote.  The cache changes no output."""
         cfg = self.config
         cap_h = min(cfg.fri.cap_height, self.log_n)
         cols = np.concatenate(
             [self.selector_values, self.constants_values, self.sigma_values],
             axis=1,
         ).T  # (F, n)
+        cache_dir = os.environ.get("MP2_FIXED_CACHE")
+        cache_path = None
+        if cache_dir:
+            key = hashlib.sha256(
+                cols.tobytes()
+                + repr((cfg.fri.rate_bits, cap_h, cols.shape)).encode()
+            ).hexdigest()[:32]
+            cache_path = os.path.join(cache_dir, f"fixed_{key}.npz")
+            if os.path.exists(cache_path):
+                with np.load(cache_path) as z:
+                    self.set_fixed(z["coeffs"], z["lde"],
+                                   [z[f"level_{i}"] for i in range(int(z["n_levels"]))])
+                return
         vals = gl.from_u64(cols, self.device)
         self.fixed_coeffs = ntt.intt(vals)
         self.fixed_lde = ntt.lde(self.fixed_coeffs, cfg.fri.rate_bits, SHIFT)
         self.fixed_tree = MerkleTree.from_lde(self.fixed_lde, cap_height=cap_h)
+        self.set_digest()
+        if cache_path:
+            os.makedirs(cache_dir, exist_ok=True)
+            levels = self.fixed_tree.digest_levels
+            tmp = cache_path + ".tmp"
+            with open(tmp, "wb") as f:
+                np.savez(
+                    f,
+                    coeffs=gl.to_u64(self.fixed_coeffs),
+                    lde=gl.to_u64(self.fixed_lde),
+                    n_levels=len(levels),
+                    **{f"level_{i}": gl.to_u64(l) for i, l in enumerate(levels)},
+                )
+            os.replace(tmp, cache_path)
+
+    def set_fixed(self, coeffs: np.ndarray, lde: np.ndarray, levels: List[np.ndarray]):
+        """The fixed data from canonical uint64 arrays, put on `device`:
+        coefficients (F, n), the natural-order LDE (F, big) and the fixed
+        tree's digest levels from the leaf digests (over bit-reversed
+        leaves) to the cap; then the circuit digest."""
+        def put(a):
+            return gl.from_u64(np.asarray(a, dtype=np.uint64), self.device)
+
+        self.fixed_coeffs = put(coeffs)
+        self.fixed_lde = put(lde)
+        cap_h = min(self.config.fri.cap_height, self.log_n)
+        self.fixed_tree = MerkleTree.from_levels(self.fixed_lde, [put(l) for l in levels],
+                                                 cap_h)
         self.set_digest()
 
     def set_digest(self):

@@ -20,7 +20,9 @@ Usage:
 Port of `mp2_tpu/recursion/runtime.py`.  The framework takes the device its
 circuits are compiled for and proved on (`device="cuda"` unless the caller
 asks for the CPU), and every stage of the batched paths (member and each
-wrap level) runs through the port's `prover/batch.prove_batch`.
+wrap level) runs through the port's `prover/batch.prove_batch`.  Set-up
+(the constructor, the `add_*` methods and `finalize`) runs with Python's
+cyclic garbage collector paused (`utils.collector_paused`).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from mp2_tpu_torch.recursion.wrap import (
     discover_standard,
     set_universal_witness,
 )
+from mp2_tpu_torch.utils import collector_paused
 from mp2_tpu_torch.utils.trace import span
 
 HashOut = Tuple[int, int, int, int]
@@ -95,6 +98,7 @@ class _Member:
 
 
 class RecursionFramework:
+    @collector_paused()
     def __init__(
         self,
         config: CircuitConfig,
@@ -114,6 +118,7 @@ class RecursionFramework:
         self._wrap_cache: Dict = {}
 
     # ------------------------------------------------------------- declare
+    @collector_paused()
     def add_leaf_circuit(self, name: str, build_fn: Callable) -> None:
         """build_fn(b) must register EXACTLY num_user_pis public inputs and
         return assign(inputs_dict, *user_args)."""
@@ -121,6 +126,7 @@ class RecursionFramework:
         assign = build_fn(b)
         self._finish_member(name, b, assign, [])
 
+    @collector_paused()
     def add_aggregation_circuit(
         self,
         name: str,
@@ -198,6 +204,7 @@ class RecursionFramework:
             chain = [self._wrap_for(data)]
         return chain
 
+    @collector_paused()
     def finalize(self) -> HashOut:
         """Build every member's wrap chain, assemble the circuit set.
         Returns the set digest — the fixed verification key."""

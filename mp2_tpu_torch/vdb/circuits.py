@@ -25,11 +25,11 @@ PI layouts (within the padded width NUM_USER_PIS=43):
   block: h(4) | digest(11) | min(8) | max(8)                    (= 31)
   ivc:   block_root(4) | metadata(4) | latest_block(1)          (= 9)
 
-A jax-free copy of the cells and rows parts of `mp2_tpu/vdb/circuits.py`:
-only the imports change, and `VerifiableDbCircuits` takes the device its
-circuits are compiled for and proved on (`device="cuda"` unless the caller
-asks for the CPU).  The block and IVC builders and sets are not ported yet;
-they join the same constructor when they are.
+A jax-free copy of `mp2_tpu/vdb/circuits.py` without the extraction-bound
+block members (`block_leaf_bound`, `block_parent_bound`), which need the
+final-extraction circuits: only the imports change, and
+`VerifiableDbCircuits` takes the device its circuits are compiled for and
+proved on (`device="cuda"` unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -135,6 +135,23 @@ class _RowsPis:
             mult_cnt=pis[26],
             mn=U256Target(tuple(pis[27:35])),
             mx=U256Target(tuple(pis[35:43])),
+        )
+
+
+@dataclass
+class _BlockPis:
+    h: List[Target]
+    digest: CurveTarget
+    mn: U256Target
+    mx: U256Target
+
+    @staticmethod
+    def parse(b, pis: Sequence[Target]) -> "_BlockPis":
+        return _BlockPis(
+            h=list(pis[0:4]),
+            digest=curve_from_pi_targets(b, pis[4:15]),
+            mn=U256Target(tuple(pis[15:23])),
+            mx=U256Target(tuple(pis[23:31])),
         )
 
 
@@ -363,18 +380,164 @@ def _build_rows_partial(b, children, foreign):
 
 
 # ---------------------------------------------------------------------------
-# the chained circuit sets
+# block (index) tree circuits
+# ---------------------------------------------------------------------------
+
+
+def _block_common(b, rows: _RowsPis):
+    """Block-node digest (vdb.digests + trees.BlockPayload.node_digest):
+    rows_digest = compute_final_digest(is_merge, ...);
+    node_digest = HashToInt(H(index_id || block_number)) * rows_digest."""
+    index_id = b.add_input()
+    number = add_virtual_u256(b)
+    is_merge = _bool_input(b)
+    # merge case (block_tree/mod.rs:69-95): final =
+    # H2Int(fields(H2Int(H("")||cnt) * mult_vd)) * ind_vd — matching the
+    # final-extraction merge digest H2Int(fields(dv_mult)) * dv_ind
+    e = [b.constant(v) for v in EMPTY]
+    merge_h = b.hash_no_pad(e + [rows.mult_cnt])
+    md = curve_scalar_mul_hash128(b, merge_h[0], merge_h[1], rows.mult_vd)
+    fh = b.hash_no_pad(curve_to_pi_targets(b, md))
+    merged = curve_scalar_mul_hash128(b, fh[0], fh[1], rows.ind_vd)
+    rows_digest = curve_select(b, is_merge, merged, rows.ind_vd)
+    idx_h = b.hash_no_pad([index_id] + list(number.limbs))
+    node_digest = curve_scalar_mul_hash128(b, idx_h[0], idx_h[1], rows_digest)
+    return index_id, number, is_merge, node_digest, rows_digest
+
+
+def _assign_block(inputs, targets, index_id, block_number, is_merge):
+    t_id, t_num, t_merge = targets
+    inputs[t_id] = index_id
+    set_u256(inputs, t_num, block_number)
+    inputs[t_merge] = 1 if is_merge else 0
+
+
+def _block_register(b, h, digest, mn, mx):
+    pis = (
+        list(h)
+        + curve_to_pi_targets(b, digest)
+        + list(mn.limbs)
+        + list(mx.limbs)
+    )
+    b.register_public_inputs(_pad_pis(b, pis))
+
+
+def block_pi_values(payload):
+    from mp2_tpu_torch.utils.u256 import u256_to_fields
+
+    return _pad_vals(
+        list(payload.hash)
+        + payload.digest.to_fields()
+        + u256_to_fields(payload.min_value)
+        + u256_to_fields(payload.max_value)
+    )
+
+
+def _build_block_leaf(b, children, foreign):
+    rows = _RowsPis.parse(b, foreign[0].public_inputs())
+    index_id, number, is_merge, digest, _ = _block_common(b, rows)
+    e = [b.constant(v) for v in EMPTY]
+    h = _row_node_hash_circuit(b, e, e, number, number, index_id, number, rows.h)
+    _block_register(b, h, digest, number, number)
+
+    def assign(inputs, index_id_v, block_number, is_merge_v=False):
+        _assign_block(inputs, (index_id, number, is_merge), index_id_v,
+                      block_number, is_merge_v)
+
+    return assign
+
+
+def _block_parent_body(b, children, rows, index_id, number, is_merge, digest):
+    l = _BlockPis.parse(b, children[0].public_inputs())
+    r = _BlockPis.parse(b, children[1].public_inputs())
+    has_r = _bool_input(b)  # sbbst parents always have a left child
+    e = [b.constant(v) for v in EMPTY]
+    rh = [b.select(has_r, a, z) for a, z in zip(r.h, e)]
+    mn = _u256_min(b, number, l.mn)
+    mn = u256_select(b, has_r, _u256_min(b, mn, r.mn), mn)
+    mx = _u256_max(b, number, l.mx)
+    mx = u256_select(b, has_r, _u256_max(b, mx, r.mx), mx)
+    d = curve_add(b, digest, l.digest)
+    d = curve_add(b, d, curve_select(b, has_r, r.digest, curve_zero(b)))
+    h = _row_node_hash_circuit(b, l.h, rh, mn, mx, index_id, number, rows.h)
+    _block_register(b, h, d, mn, mx)
+    return has_r
+
+
+def _build_block_parent(b, children, foreign):
+    """One or two block children + the node's own rows proof; missing
+    children are flagged and replaced by the empty hash / neutral digest."""
+    rows = _RowsPis.parse(b, foreign[0].public_inputs())
+    index_id, number, is_merge, digest, _ = _block_common(b, rows)
+    has_r = _block_parent_body(
+        b, children, rows, index_id, number, is_merge, digest
+    )
+
+    def assign(inputs, index_id_v, block_number, has_right, is_merge_v=False):
+        _assign_block(inputs, (index_id, number, is_merge), index_id_v,
+                      block_number, is_merge_v)
+        inputs[has_r] = 1 if has_right else 0
+
+    return assign
+
+
+# ---------------------------------------------------------------------------
+# IVC circuits
+# ---------------------------------------------------------------------------
+
+
+def ivc_pi_values(block_root_hash, metadata_hash, latest_block: int):
+    return _pad_vals(list(block_root_hash) + list(metadata_hash) + [latest_block])
+
+
+def _build_ivc_first(b, children, foreign):
+    blk = foreign[0].public_inputs()
+    metadata = b.add_inputs(4)
+    latest = b.add_input()
+    pis = list(blk[0:4]) + list(metadata) + [latest]
+    b.register_public_inputs(_pad_pis(b, pis))
+
+    def assign(inputs, metadata_hash, latest_block):
+        for t, v in zip(metadata, metadata_hash):
+            inputs[t] = int(v)
+        inputs[latest] = int(latest_block)
+
+    return assign
+
+
+def _build_ivc_subsequent(b, children, foreign):
+    prev = children[0].public_inputs()
+    blk = foreign[0].public_inputs()
+    metadata = list(prev[4:8])  # metadata hash must carry over unchanged
+    latest = b.add_input()
+    pis = list(blk[0:4]) + metadata + [latest]
+    b.register_public_inputs(_pad_pis(b, pis))
+
+    def assign(inputs, latest_block):
+        inputs[latest] = int(latest_block)
+
+    return assign
+
+
+# ---------------------------------------------------------------------------
+# the four chained circuit sets
 # ---------------------------------------------------------------------------
 
 
 class VerifiableDbCircuits:
-    """Builds the cells -> rows circuit sets with chained fixed VKs
-    (verifiable-db/src/api.rs:93-115 role): the rows set verifies a cells
-    root in-circuit against the cells set's digest.  The block and IVC sets
-    of the reference's constructor are not ported yet; they are added here,
-    after the rows set, when they are."""
+    """Builds the cells -> rows -> block -> IVC circuit sets with chained
+    fixed VKs (verifiable-db/src/api.rs:93-115 role): each set verifies the
+    root of the one below in-circuit against that set's digest."""
 
-    def __init__(self, config: CircuitConfig, device="cuda"):
+    def __init__(self, config: CircuitConfig, extraction=None, device="cuda"):
+        """`extraction`: the final-extraction circuits that the reference's
+        extraction-bound block members verify; they are not ported, so any
+        value but None raises instead of leaving those members out."""
+        if extraction is not None:
+            raise NotImplementedError(
+                "the extraction-bound block members (block_leaf_bound, "
+                "block_parent_bound) wait for the final-extraction circuits "
+                "(ROADMAP Queue 1 item 3)")
         self.config = config
         self.cells = RecursionFramework(config, NUM_USER_PIS, set_height=2,
                                         device=device)
@@ -397,6 +560,26 @@ class VerifiableDbCircuits:
             "rows_partial", 1, _build_rows_partial, foreign=[self.cells]
         )
         self.rows.finalize()
+
+        self.block = RecursionFramework(config, NUM_USER_PIS, set_height=2,
+                                        device=device)
+        self.block.add_aggregation_circuit(
+            "block_leaf", 0, _build_block_leaf, foreign=[self.rows]
+        )
+        self.block.add_aggregation_circuit(
+            "block_parent", 2, _build_block_parent, foreign=[self.rows]
+        )
+        self.block.finalize()
+
+        self.ivc = RecursionFramework(config, NUM_USER_PIS, set_height=1,
+                                      device=device)
+        self.ivc.add_aggregation_circuit(
+            "ivc_first", 0, _build_ivc_first, foreign=[self.block]
+        )
+        self.ivc.add_aggregation_circuit(
+            "ivc_subsequent", 1, _build_ivc_subsequent, foreign=[self.block]
+        )
+        self.ivc.finalize()
 
     # ------------------------------------------------------------ proving
     def prove_cells_tree(self, cells_result) -> WrappedEnvelope:

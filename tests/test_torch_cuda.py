@@ -1,5 +1,5 @@
-"""K1, K2 (and its entries), K2c, P1 and the batched prover on a CUDA card.  These tests skip where there is
-no card.  The file imports no JAX, so it also runs on a machine without it:
+"""K1, K2 (and its entries), K2c, P1, the batched prover and the fixed-data
+cache on a CUDA card.  These tests skip where there is no card.  The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
 """
@@ -221,3 +221,24 @@ def test_prove_batch_on_card_matches_golden(cuda):
     assert all(a > b for a, b in zip(after, before))
     assert [proof_sha256(proof_to_dict(p)) for p in proofs] == golden["proof_sha256"]
     assert all(verify(data, p) for p in proofs)
+
+
+@pytest.mark.cuda
+def test_fixed_cache_warm_compile_on_card(cuda, tmp_path, monkeypatch):
+    """With MP2_FIXED_CACHE set, a second compile of a circuit reads the
+    fixed data the first wrote: the same digest and proofs, its tensors on
+    the card, and no Merkle hashing of its own."""
+    monkeypatch.setenv("MP2_FIXED_CACHE", str(tmp_path))
+    cold, inputs = _build_tree_node(test_config(), cuda)
+    assert len(os.listdir(tmp_path)) == 1
+    before = (K.hash_leaves.launches, K.merkle_levels.launches)
+    warm, warm_inputs = _build_tree_node(test_config(), cuda)
+    assert (K.hash_leaves.launches, K.merkle_levels.launches) == before
+    assert warm.circuit_digest == cold.circuit_digest
+    for t in (warm.fixed_coeffs, warm.fixed_lde, *warm.fixed_tree.digest_levels):
+        assert t.device.type == "cuda"
+    for a, b in zip(warm.fixed_tree.digest_levels, cold.fixed_tree.digest_levels, strict=True):
+        assert torch.equal(a, b)
+    shas = [[proof_sha256(proof_to_dict(p)) for p in prove_batch(d, *tree_node_batch(d, i, 2, 0))]
+            for d, i in ((cold, inputs), (warm, warm_inputs))]
+    assert shas[0] == shas[1]

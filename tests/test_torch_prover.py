@@ -202,7 +202,7 @@ def test_port_imports_no_jax():
         "        'circuit.gadgets.curve', 'circuit.gadgets.u256',\n"
         "        'ryhope.updatetree', 'ryhope.scapegoat', 'ryhope.sbbst',\n"
         "        'ryhope.kvdb', 'vdb.digests', 'vdb.trees', 'vdb.circuits',\n"
-        "        'parallel.scheduler']\n"
+        "        'parallel.scheduler', 'prover.params']\n"
         "missing = [m for m in want if 'mp2_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
