@@ -55,16 +55,42 @@ drives three paths:
   drained bottom-up (`block_leaf`, `block_parent` with and without a right
   child) and followed by an IVC step (`ivc_first`, then `ivc_subsequent`),
   every block-tree root and IVC proof verified and held against the host
-  model, printed as `vdb_block_ivc_proofs_per_s`; and the sets and the
-  chain at `CircuitConfig()`, verified.
+  model, printed as `vdb_block_ivc_proofs_per_s`; and the sets at
+  `CircuitConfig()`, with the chain to `rows_leaf` proved and verified;
 
-The kernel times, the tree-node batches, the row update and the
-block-tree path run alone on the card.  The production vdb sets, whose
-set-up is host-bound Python with short bursts on the card, run in a second
-process of this script (`--vdb-production`) from the end of the tree-node
-timing, beside the recursion and the light vdb set-up; the script waits
-for it before the row update, prints its output and fails with it.  Each
-phase prints its wall.
+  the storage trie of extraction: the values-extraction set of the
+  pipeline's mapping table (`extraction/mpt_circuits.ValuesExtractionCircuits`
+  with `leaf_mapping`, `extension`, `branch1`, `branch2` and `branch3`
+  members of 2^14 to 2^16 rows, keccak, RLP and the MPT key chain
+  in-circuit) at `test_config()`, its set, member and circuit digests,
+  rows and wrap chains checked against
+  `mp2_tpu_torch/testdata/extraction_golden.json`, which the JAX package
+  wrote; then block 101's storage trie proved from its leaves to the
+  storage root through `prove_trie` (3 `leaf_mapping` and 2 `branch2`
+  proofs, each wrapped), the root verified and its public inputs held
+  against the host model `extract_storage_slots`, the 0x11 leaf's
+  envelope against the JAX package's proof, printed as
+  `extraction_storage_proofs_per_s`; then every K2c and K1 Merkle entry
+  shape that this path fed, held against its plain twin.
+
+Four processes of this script share the card.  The main one builds the
+kernels, then starts the other three, which set up their circuit sets on
+the host (with the fixed commitments' short launches) while the main one
+runs the kernel phases, the tree-node batches and their timing, holding the
+whole card.  After that every step that proves takes one of two lanes of
+the card, which the main process grants: the heavy lane runs the row update
+with the block path (`--vdb-light`), then the storage trie with its kernel
+shapes (`--extraction`), one at a time, since each takes ~40 GiB of the
+card at its peak; the other lane runs the remaining steps one at a time:
+the production recursion (`--extraction`), the production vdb chain
+(`--vdb-production`), the light recursion (main process) and the light vdb
+golden chain (`--vdb-light`); the trie also waits for the production vdb
+chain to end, so that the card keeps a few GiB free.  So no other step that
+proves runs beside the kernel phases and the tree-node timing, and each
+step of the heavy lane runs beside at most one step of the other lane.  The
+script prints each step's times on its clock (asked for its lane, granted
+it, gave it back), the least free card memory it saw, the other processes'
+output, and fails with them.  Each phase prints its wall.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched.  Any
@@ -79,8 +105,10 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -89,6 +117,11 @@ import numpy as np
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import torch  # noqa: E402
 
+from mp2_tpu_torch.extraction import api as XA
+from mp2_tpu_torch.extraction import storage_key as SK
+from mp2_tpu_torch.extraction import values as XV
+from mp2_tpu_torch.extraction.columns import simple_column
+from mp2_tpu_torch.extraction.mpt_circuits import ValuesExtractionCircuits, mpt_pi_values
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.hash import poseidon2 as p2
 from mp2_tpu_torch.hash import poseidon2_host as p2h
@@ -98,16 +131,21 @@ from mp2_tpu_torch.ops import ntt_t_cuda as T
 from mp2_tpu_torch.ops import poseidon2_cuda as K
 from mp2_tpu_torch.ops import probe_cuda as PC
 from mp2_tpu_torch.parallel.scheduler import MapReduceScheduler
-from mp2_tpu_torch.prover import ntt
+from mp2_tpu_torch.prover import batch as batch_mod
+from mp2_tpu_torch.prover import merkle, ntt
 from mp2_tpu_torch.prover.batch import prove_batch
 from mp2_tpu_torch.prover.config import CircuitConfig, test_config
+from mp2_tpu_torch.prover.prove import CircuitData
 from mp2_tpu_torch.prover.serde import proof_sha256, proof_to_dict
 from mp2_tpu_torch.prover.verify import verify
 from mp2_tpu_torch.recursion import runtime
 from mp2_tpu_torch.recursion.runtime import RecursionFramework
 from mp2_tpu_torch.recursion.tp2_backend import _build_tree_node, tree_node_batch
 from mp2_tpu_torch.ryhope.updatetree import UpdateTree
-from mp2_tpu_torch.utils import trace
+from mp2_tpu_torch.utils import rlp, trace
+from mp2_tpu_torch.utils.keccak import keccak256
+from mp2_tpu_torch.utils.trie import MPT
+from mp2_tpu_torch.utils.u256 import left_pad32, pack_bytes_be
 from mp2_tpu_torch.vdb import circuits as V
 from mp2_tpu_torch.vdb import digests as D
 from mp2_tpu_torch.vdb.trees import (BlockPayload, Cell, RowPayload, build_cells_tree,
@@ -117,7 +155,7 @@ TESTDATA = os.path.join("mp2_tpu_torch", "testdata")
 LIGHT_BATCH = 32
 PROD_BATCH = 8
 TIMED_BATCHES = 10
-TREE_LEAVES = 8  # BASELINE config 3 says 16; cut to keep the script in its time limit
+TREE_LEAVES = 4  # BASELINE config 3 says 16; cut to keep the script in its time limit
 WIRES = 136  # columns of every circuit here (CircuitConfig.num_wires)
 
 # The least time the card could take (bound_ms): H100 SXM, NVIDIA's data
@@ -258,18 +296,70 @@ def _read_counts(path, launches, kernels=PROVER_KERNELS):
     return got
 
 
-def phase_toolchain(card):
+def _shape_key(entry, args):
+    """An entry's call as (entry, each tensor's shape or the argument)."""
+    return (entry,) + tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                            for a in args)
+
+
+# each recorded entry: its kernel wrapper and its plain twin
+SHAPE_ENTRIES = {"ntt_four_step_t": (T.ntt_four_step_t, T.ntt_four_step_plain),
+                 "lde_t": (T.lde_t, T.lde_t_plain),
+                 "coset_intt_t": (T.coset_intt_t, T.coset_intt_t_plain),
+                 "hash_leaves": (K.hash_leaves, K.hash_leaves_plain),
+                 "merkle_levels": (K.merkle_levels, K.merkle_levels_plain)}
+
+
+class _ShapeLog:
+    """Records the shapes of every K2c entry call that prover/ntt makes and
+    every K1 Merkle entry call that prover/merkle makes (a measurement hook
+    of this script only: it wraps the names those modules call, so the
+    wrappers and their launch counts are untouched)."""
+
+    def __init__(self):
+        self.keys = set()
+
+    def _recorded(self, entry, fn):
+        def call(*args):
+            self.keys.add(_shape_key(entry, args))
+            return fn(*args)
+
+        return call
+
+    def __enter__(self):
+        self._ntt = {e: getattr(ntt, e) for e in ("ntt_four_step_t", "lde_t", "coset_intt_t")}
+        for e, fn in self._ntt.items():
+            setattr(ntt, e, self._recorded(e, fn))
+        self._k1 = merkle.k1
+        merkle.k1 = SimpleNamespace(
+            hash_leaves=self._recorded("hash_leaves", K.hash_leaves),
+            merkle_levels=self._recorded("merkle_levels", K.merkle_levels))
+        return self
+
+    def __exit__(self, *exc):
+        for e, fn in self._ntt.items():
+            setattr(ntt, e, fn)
+        merkle.k1 = self._k1
+
+
+def phase_builds():
+    """Every kernel built from the sources in this checkout, one nvcc each,
+    all at once."""
+    t0 = time.perf_counter()
+    mods = (("K1", K), ("K2", N), ("K2c", T), ("P1", PC))
+    with ThreadPoolExecutor(len(mods)) as ex:
+        builds = {name: ex.submit(mod.build) for name, mod in mods}
+        builds = {name: f.result() for name, f in builds.items()}
+    print(f"kernel builds: {time.perf_counter() - t0:.3f} s wall together")
+    return builds
+
+
+def phase_toolchain(card, builds):
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     nvcc = subprocess.run([_nvcc.nvcc(), "--version"], capture_output=True, text=True)
     print("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
-    t0 = time.perf_counter()
-    mods = (("K1", K), ("K2", N), ("K2c", T), ("P1", PC))
-    with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per kernel, all at once
-        builds = {name: ex.submit(mod.build) for name, mod in mods}
-        builds = {name: f.result() for name, f in builds.items()}
-    print(f"kernel builds: {time.perf_counter() - t0:.3f} s wall together")
     sass = {}
     for name, built in builds.items():
         print(f"{name} build: nvcc {built.seconds:.3f} s -> {os.path.relpath(built.path)}")
@@ -879,12 +969,13 @@ def _framework(name, cfg, dev, golden):
 
 
 class _StageLog:
-    """Counts every prove_batch of the recursion runtime: circuit n, B, wall,
+    """Counts every prove_batch of the recursion runtime, its batched paths
+    and, through the serial `prove`, its serial ones: circuit n, B, wall,
     K1, K2 and K2c launches (a measurement hook of this script only)."""
 
     def __init__(self):
         self.stages = []
-        self._orig = runtime.prove_batch
+        self._orig = batch_mod.prove_batch
 
     def __enter__(self):
         def counted(data, wits, pis):
@@ -898,11 +989,11 @@ class _StageLog:
                                    for name in PROVER_KERNELS}})
             return out
 
-        runtime.prove_batch = counted
+        runtime.prove_batch = batch_mod.prove_batch = counted
         return self
 
     def __exit__(self, *exc):
-        runtime.prove_batch = self._orig
+        runtime.prove_batch = batch_mod.prove_batch = self._orig
 
 
 def _two_leaves_one_aggregation(fw, values):
@@ -913,9 +1004,9 @@ def _two_leaves_one_aggregation(fw, values):
     return hs, leaves, agg_pis, agg
 
 
-def phase_recursion_light(card, dev, golden, launches):
-    fw = _framework("light (test_config)", test_config(), dev, golden)
-
+def phase_recursion_light(card, fw, golden, launches):
+    """The light framework's golden 2 leaves + 1 aggregation, then the timed
+    TREE_LEAVES-leaf reduce tree."""
     # the golden inputs: 2 leaves + 1 aggregation, digests from the JAX package
     t0 = time.perf_counter()
     hs, leaves, agg_pis, agg = _two_leaves_one_aggregation(fw, golden["leaf_values"])
@@ -978,8 +1069,9 @@ def phase_recursion_light(card, dev, golden, launches):
     return counts, n_proofs / wall
 
 
-def phase_recursion_production(card, dev, golden, launches):
-    fw = _framework("production (CircuitConfig)", CircuitConfig(), dev, golden)
+def phase_recursion_production(card, fw, launches):
+    """2 leaves + 1 aggregation of the production framework, the root
+    verified."""
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     with _StageLog() as log:
@@ -998,12 +1090,15 @@ def phase_recursion_production(card, dev, golden, launches):
               f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
 
 
-VDB_ROWS = 8  # rows inserted by one block
+VDB_ROWS = 4  # rows inserted by one block; cut to keep the script in its time limit
 VDB_COLUMNS = 3  # value columns of the table (cells per row)
 SECONDARY_ID = 10  # column identifiers of the table
 COLUMN_IDS = (11, 12, 13)
 VDB_SETS = ("cells", "rows", "block", "ivc")
 BLOCKS = 3  # blocks appended to the block tree over the row update's table
+# each block's members in proving order: its block-tree plan, then the IVC step
+BLOCK_MEMBERS = (("block_leaf", "ivc_first"), ("block_parent", "ivc_subsequent"),
+                 ("block_leaf", "block_parent", "ivc_subsequent"))
 BLOCK_INDEX_ID = 14  # column identifier of the block number
 METADATA_INPUTS = (1, 2, 3)  # the IVC metadata hash is H(1, 2, 3)
 
@@ -1172,17 +1267,22 @@ def _prove_row_update(vdb, db, plan):
     return cells_envs, rows_envs, cells_stats, rows_stats
 
 
-def phase_vdb_light(card, dev, golden):
-    """The four sets at test_config() against the golden digests and the
-    golden 2-cell -> rows_leaf -> block_leaf -> ivc_first chain; returns the
-    sets."""
+def phase_vdb_light_setup(card, dev, golden):
+    """The four sets at test_config() against the golden digests; returns
+    the sets."""
     t0 = time.perf_counter()
     vdb = V.VerifiableDbCircuits(test_config(), device=dev)
     print(f"vdb light (test_config): the four sets built and finalized in "
           f"{time.perf_counter() - t0:.3f} s on the host and the card")
     _vdb_sets("vdb light", vdb, golden["light"])
+    return vdb
 
+
+def phase_vdb_chain(card, vdb, golden):
+    """The golden 2-cell -> rows_leaf -> block_leaf -> ivc_first chain at
+    test_config(), each envelope against the JAX package's proof."""
     g = golden["chain"]
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     envs, pis, rows = _row_chain(vdb, g["cells"], g["secondary"],
                                  tuple(g["row_unique_data"]), tuple(g["row_key"]))
@@ -1204,9 +1304,9 @@ def phase_vdb_light(card, dev, golden):
               "leaf or the IVC proof")
     members = g["members"] + g["block_ivc_members"]
     print(f"vdb chain: {' -> '.join(members)} in {time.perf_counter() - t0:.3f} s "
-          f"(serial prove, first use of each shape); envelope proofs equal to the JAX "
-          f"golden digests ({', '.join(d[:12] for d in got + got_upper)}); verified")
-    return vdb
+          f"(serial prove); envelope proofs equal to the JAX golden digests "
+          f"({', '.join(d[:12] for d in got + got_upper)}); verified; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 
 def phase_vdb_update(card, vdb, launches):
@@ -1332,8 +1432,7 @@ def phase_vdb_block_ivc(card, vdb, rows_db, rows_env, launches):
                 or ivc_env.public_inputs != ivc_pis + list(vdb.ivc.set_digest)):
             _fail("vdb: a block-tree root's or an IVC proof's public inputs differ "
                   "from the host model's")
-    want = ["block_leaf", "ivc_first", "block_parent", "ivc_subsequent",
-            "block_leaf", "block_parent", "ivc_subsequent"]
+    want = [m for members in BLOCK_MEMBERS[:BLOCKS] for m in members]
     if proved != want:
         _fail(f"vdb: the block-tree and IVC steps proved {proved}, not {want}")
     prove_s = sum(st["s"] for st in log.stages)
@@ -1353,57 +1452,463 @@ def phase_vdb_block_ivc(card, vdb, rows_db, rows_env, launches):
     return counts
 
 
-def phase_vdb_production(card, dev, golden):
-    """The four sets at CircuitConfig() against the golden digests, then the
-    2-cell -> rows_leaf -> block_leaf -> ivc_first chain proved and
-    verified.  Runs in its own process (VDB_PRODUCTION_FLAG), beside the
-    main one's phases from the recursion to the light vdb set-up."""
+def phase_vdb_production_setup(card, dev, golden):
+    """The four sets at CircuitConfig() against the golden digests."""
     t0 = time.perf_counter()
     vdb = V.VerifiableDbCircuits(CircuitConfig(), device=dev)
     print(f"vdb production (CircuitConfig): the four sets built and finalized in "
-          f"{time.perf_counter() - t0:.3f} s, in a second process")
+          f"{time.perf_counter() - t0:.3f} s")
     _vdb_sets("vdb production", vdb, golden["production"])
+    return vdb
+
+
+def phase_vdb_production_chain(card, vdb, golden):
+    """The 2-cell -> rows_leaf chain at CircuitConfig() proved and verified
+    (cut there to keep the script in its time limit; the light chain goes
+    on to block_leaf and ivc_first)."""
     g = golden["chain"]
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    envs, _, rows = _row_chain(vdb, g["cells"], g["secondary"],
-                               tuple(g["row_unique_data"]), tuple(g["row_key"]))
-    upper, upper_pis = _block_ivc_chain(vdb, g, rows, envs[-1])
+    envs, pis, _ = _row_chain(vdb, g["cells"], g["secondary"],
+                              tuple(g["row_unique_data"]), tuple(g["row_key"]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if not (vdb.rows.verify(envs[-1]) and vdb.block.verify(upper[0])
-            and vdb.ivc.verify(upper[1])):
-        _fail("vdb production: fw.verify rejected the rows leaf, the block leaf or the "
-              "IVC proof")
-    if (upper_pis != [g["block_leaf_public_inputs"], g["ivc_first_public_inputs"]]
-            or upper[0].public_inputs != upper_pis[0] + list(vdb.block.set_digest)
-            or upper[1].public_inputs != upper_pis[1] + list(vdb.ivc.set_digest)):
-        _fail("vdb production: the block leaf's or the IVC proof's PIs differ from the "
-              "host model's")
-    print(f"vdb production chain: {' -> '.join(e.member for e in envs + upper)} in "
-          f"{wall:.3f} s (serial prove, first use of each shape); rows leaf, block leaf "
-          f"and IVC proof verified; peak device memory of its process "
+    if not (vdb.cells.verify(envs[-2]) and vdb.rows.verify(envs[-1])):
+        _fail("vdb production: fw.verify rejected the cells root or the rows leaf")
+    if (pis != g["rows_leaf_public_inputs"]
+            or envs[-1].public_inputs != pis + list(vdb.rows.set_digest)):
+        _fail("vdb production: the rows leaf's PIs differ from the host model's")
+    print(f"vdb production chain: {' -> '.join(e.member for e in envs)} in "
+          f"{wall:.3f} s (serial prove, first use of each shape); cells root and rows "
+          f"leaf verified; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {card}")
 
 
+# the mapping table of tests/test_circuit_pipeline.py:30 and block 101's
+# storage trie as mp2_tpu/models/pipeline.py:139-156 builds it
+EXTRACTION_CONTRACT = bytes(range(20))
+EXTRACTION_CHAIN_ID = 1
+EXTRACTION_SLOT = 4
+EXTRACTION_ENTRIES = {b"\x11": 150, b"\x22": 200, b"\x33": 50}
+EXTRACTION_UNRELATED = 7  # the value of the trie's leaf outside the table
+EXTRACTION_ARITIES = (1, 2, 3)  # the pipeline's branch members
+EXTRACTION_PROOFS = ["leaf_mapping"] * 3 + ["branch2"] * 2
+
+
+def _extraction_table():
+    """(column, key_id, value_id) of the mapping table, derived as
+    mp2_tpu/models/pipeline.py:78-86 derives them."""
+    key_id = XV.identifier_for_mapping_key_column(EXTRACTION_SLOT, EXTRACTION_CONTRACT,
+                                                  EXTRACTION_CHAIN_ID)
+    value_id = XV.identifier_for_value_column(EXTRACTION_SLOT, 0, 256, 0,
+                                              EXTRACTION_CONTRACT, EXTRACTION_CHAIN_ID)
+    return simple_column(EXTRACTION_SLOT, value_id), key_id, value_id
+
+
+def phase_extraction_setup(card, dev, golden):
+    """The values-extraction set of the pipeline's mapping table
+    (mp2_tpu/models/circuit_pipeline.py:132-136) at test_config(): set
+    digest, standard n, each member's digest, circuit digest, rows and wrap
+    chain against the golden record of the JAX package."""
+    column, key_id, value_id = _extraction_table()
+    if [key_id, value_id] != [golden["table"]["key_id"], golden["table"]["value_id"]]:
+        _fail("extraction: the table's column identifiers differ from the JAX package's")
+    t0 = time.perf_counter()
+    vx = ValuesExtractionCircuits([column], value_id, config=test_config(),
+                                  mapping=(EXTRACTION_SLOT, key_id),
+                                  branch_arities=EXTRACTION_ARITIES, device=dev)
+    wall = time.perf_counter() - t0
+    fw, g = vx.fw, golden["set"]
+    members = {m: {"digest": list(fw.members[m].digest),
+                   "circuit_digest": list(fw.members[m].data.circuit_digest),
+                   "n": fw.members[m].data.n,
+                   "wrap_chain_n": [fw.members[m].data.n] + [
+                       wc.data.n for wc in fw._wrap_chain_for(fw.members[m].data)]}
+               for m in fw.member_order}
+    print(f"extraction set (test_config): built and finalized in {wall:.3f} s on the host "
+          f"and the card; standard n={fw.standard.n}; members "
+          + ", ".join(f"{m} {r['n']} rows, wrap chain {r['wrap_chain_n']}"
+                      for m, r in members.items()))
+    if (list(fw.set_digest) != g["set_digest"] or fw.standard.n != g["standard_n"]
+            or list(fw.member_order) != g["member_order"]):
+        _fail("extraction: set digest, standard n or members differ from the JAX package's")
+    for m, rec in members.items():
+        if rec != g["members"][m]:
+            _fail(f"extraction: member {m}'s digest, circuit digest, rows or wrap chain "
+                  f"differ from the JAX package's")
+    print(f"extraction set: set digest {fw.set_digest[0]:#x}..., standard n, member and "
+          f"circuit digests, rows and wrap chains equal to the JAX package's")
+    return vx
+
+
+@contextlib.contextmanager
+def _member_log(fw, members, envs):
+    """Each member proof of `fw` on the serial path (prove_leaf,
+    prove_aggregation): its wall, the time in witness generation (member and
+    wraps) and its envelope (a measurement hook of this script only; the
+    prove_batch share comes from a _StageLog around it)."""
+    clock = [0.0]
+    generate_witness = CircuitData.generate_witness
+
+    def timed_witness(data, inputs):
+        t0 = time.perf_counter()
+        try:
+            return generate_witness(data, inputs)
+        finally:
+            clock[0] += time.perf_counter() - t0
+
+    def logged(prove_fn):
+        def call(name, *args, **kw):
+            t0, w0 = time.perf_counter(), clock[0]
+            env = prove_fn(name, *args, **kw)
+            torch.cuda.synchronize()
+            members.append({"member": name, "s": time.perf_counter() - t0,
+                            "witness_s": clock[0] - w0})
+            envs.append((name, args, env))
+            return env
+
+        return call
+
+    CircuitData.generate_witness = timed_witness
+    fw.prove_leaf = logged(fw.prove_leaf)
+    fw.prove_aggregation = logged(fw.prove_aggregation)
+    try:
+        yield
+    finally:
+        CircuitData.generate_witness = generate_witness
+        del fw.prove_leaf, fw.prove_aggregation
+
+
+def phase_extraction(card, vx, golden, launches):
+    """Block 101's storage trie proved from its leaves to the storage root
+    through prove_trie, as mp2_tpu/models/circuit_pipeline.py:159-166 calls
+    it, on the default path (each leaf and branch a proof of its own, each
+    wrapped); timed; the root verified and held against the host model
+    extract_storage_slots, the 0x11 leaf against the JAX package's proof.
+    Returns the kernel shapes that the path fed."""
+    g = golden["trie"]
+    trie = MPT(secure=True)
+    for k, v in EXTRACTION_ENTRIES.items():
+        trie.insert(SK.mapping_location(EXTRACTION_SLOT, k), rlp.encode_int(v))
+    trie.insert(keccak256(b"unrelated"), rlp.encode_int(EXTRACTION_UNRELATED))
+    if trie.root_hash().hex() != g["root_hash"]:
+        _fail("extraction: block 101's trie has another root than the JAX package's")
+    column, key_id, _ = _extraction_table()
+    locations = {k: SK.mapping_location(EXTRACTION_SLOT, k) for k in sorted(EXTRACTION_ENTRIES)}
+    host = XA.extract_storage_slots(trie, [column], [
+        XA.SlotEntry(EXTRACTION_SLOT, loc, mapping_key=k, key_id=key_id)
+        for k, loc in locations.items()])
+    host_pis = mpt_pi_values(host.node_hash, host.values_digest, host.metadata_digest,
+                             host.n_leaves)
+    if host_pis != g["host_root_public_inputs"]:
+        _fail("extraction: the host model's root PIs differ from the JAX package's")
+    paths = {k: trie.get_proof(loc) for k, loc in locations.items()}
+
+    os.environ.pop("MP2_BATCH_LEAVES", None)  # the default path: one proof per node
+    members, envs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["MP2_TRACE"] = "1"  # the runtime's spans, one stderr line each
+    _reset_counts()
+    with _StageLog() as log, _ShapeLog() as shapes, _member_log(vx.fw, members, envs):
+        t0 = time.perf_counter()
+        root_env, root_pis = vx.prove_trie(paths, {k: k for k in paths})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del os.environ["MP2_TRACE"]
+    counts = _read_counts("extraction", launches)
+
+    proved = [m["member"] for m in members]
+    if proved != EXTRACTION_PROOFS:
+        _fail(f"extraction: prove_trie proved {proved}, not {EXTRACTION_PROOFS}")
+    if not vx.verify(root_env):
+        _fail("extraction: vx.verify rejected the root")
+    if (root_pis[:31] != host_pis or root_pis[95] != 0 or root_pis[30] != len(paths)
+            or root_pis[:8] != pack_bytes_be(keccak256(paths[b"\x11"][0]))
+            or root_env.public_inputs != root_pis + list(vx.fw.set_digest)):
+        _fail("extraction: the root's PIs are not the host model's H, DV, DM, N with S = 0 "
+              "and the set digest")
+    gl_leaf = golden["leaf"]
+    leaf_key = left_pad32(bytes.fromhex(gl_leaf["key"]))
+    (leaf_env,) = [env for name, args, env in envs
+                   if name == "leaf_mapping" and args[0][1] == leaf_key]
+    leaf_sha = proof_sha256(proof_to_dict(leaf_env.proof))
+    if leaf_env.public_inputs != gl_leaf["public_inputs"] or leaf_sha != gl_leaf["proof_sha256"]:
+        _fail(f"extraction: the 0x11 leaf's envelope differs from the JAX package's ({leaf_sha})")
+    prove_s = sum(st["s"] for st in log.stages)
+    wit_s = sum(m["witness_s"] for m in members)
+    print(f"extraction storage trie: {len(proved)} member proofs ({', '.join(proved)}), each "
+          f"wrapped, in {wall:.3f} s; root verified, PIs 0..30 = extract_storage_slots's "
+          f"(N {root_pis[30]}), S {root_pis[95]}; the 0x11 leaf's envelope equal to the JAX "
+          f"package's ({leaf_sha[:12]})")
+    print(f"extraction_storage_proofs_per_s {len(proved) / wall:.4f} ({len(proved)} member "
+          f"proofs / {wall:.3f} s wall, wraps included); {card}")
+    first = 0
+    for m in members:
+        # each member's proof and its wraps are the next stages of the log
+        last = first + 1 + len(vx.fw._wrap_chain_for(vx.fw.members[m["member"]].data))
+        own, first = log.stages[first:last], last
+        pb = sum(st["s"] for st in own)
+        walls = " + ".join(f"{st['s']:.3f}" for st in own)
+        ns = ", ".join(str(st["n"]) for st in own)
+        print(f"  {m['member']}: {m['s']:.3f} s: prove_batch {pb:.3f} s ({walls} at n {ns}), "
+              f"witness generation {m['witness_s']:.3f} s, other "
+              f"{m['s'] - pb - m['witness_s']:.3f} s")
+    if first != len(log.stages):
+        _fail(f"extraction: {len(log.stages)} prove_batch calls, not {first}")
+    print(f"extraction time: prove_batch {prove_s:.3f} s ({prove_s / wall:.3f}), witness "
+          f"generation {wit_s:.3f} s ({wit_s / wall:.3f}), other "
+          f"{wall - prove_s - wit_s:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for st in log.stages:
+        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
+              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
+    return counts, shapes.keys
+
+
+def phase_extraction_shapes(card, keys):
+    """Every K2c and K1 Merkle entry shape that the extraction path fed,
+    held against its plain twin, bit for bit."""
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    err = 0
+    for key in sorted(keys, key=repr):
+        entry, *spec = key
+        kernel, plain = SHAPE_ENTRIES[entry]
+        args = [_rand_rows(rng, a, dev) if isinstance(a, tuple) else a for a in spec]
+        want, p_ms = _timed_once(lambda: plain(*args))
+        got = kernel(*args)
+        got, want = (got, want) if isinstance(got, list) else ([got], [want])
+        for a, b in zip(got, want, strict=True):
+            err = max(err, _max_abs_err(a, b))
+            if not torch.equal(a, b):
+                _fail(f"{entry} disagrees with its plain twin at {spec}")
+        del got, want
+        k_ms = _time_ms(lambda: kernel(*args), 5)
+        print(f"extraction shape {entry} {spec}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"identical; {card}")
+    print(f"extraction path: {len(keys)} K2c and K1 Merkle entry shapes held against their "
+          f"plain twins; max_abs_err {err} (tolerance 0: bit-exact)")
+    torch.cuda.empty_cache()
+    return err
+
+
+# the other processes of this script and the card's two lanes
+VDB_LIGHT_FLAG = "--vdb-light"
 VDB_PRODUCTION_FLAG = "--vdb-production"
+EXTRACTION_FLAG = "--extraction"
+HELPERS = (VDB_LIGHT_FLAG, VDB_PRODUCTION_FLAG, EXTRACTION_FLAG)
+LANE_MARK = "@card"  # a helper's request for a lane and its release, one line each
+# each lane's steps in the order they run.  A heavy step takes ~38-41 GiB
+# of the card at its peak, so two never run together; the other steps take
+# 18-25 GiB, and the trie (41 GiB) waits for the production vdb chain (25)
+# to end, the one pair that would leave the card under ~3 GiB free
+HEAVY_ORDER = ("vdb row update + block tree", "extraction storage trie")
+OTHER_ORDER = ("recursion production", "vdb production chain", "recursion light",
+               "vdb light golden chain")
+AFTER = {"extraction storage trie": "vdb production chain"}
 
 
-def _start_vdb_production():
-    """phase_vdb_production in a second process on the same card: its set-up
-    is host-bound Python, so it overlaps the main process's phases from the
-    recursion on.  Its output is read when it is joined."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    return subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
-                             VDB_PRODUCTION_FLAG], cwd=here, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+class _Card:
+    """The card's two lanes, granted by the main process: the heavy lane
+    ("H": the row update with the block path, then the storage trie) and
+    the other lane ("O": every other step that proves), each in its fixed
+    order, a step also after the one AFTER names.  One step of each lane
+    may run at once.  The main process holds both lanes through the kernel
+    phases and the tree-node timing.  Each request, grant and release is
+    logged with its time."""
+
+    def __init__(self, t_start, holder):
+        self.cv = threading.Condition()
+        self.t_start = t_start
+        self.busy = {"H": holder, "O": holder}
+        self.queue = {"H": list(HEAVY_ORDER), "O": list(OTHER_ORDER)}
+        self.done = set()
+        self.log = []
+        self.failed = None  # a helper that exited with an error
+        for lane in self.busy:
+            self._note(lane, holder, "granted")
+
+    def _note(self, lane, step, event):
+        self.log.append((time.perf_counter() - self.t_start, lane, step, event))
+
+    def acquire(self, lane, step):
+        with self.cv:
+            self._note(lane, step, "wanted")
+            while not (self.busy[lane] is None and self.queue[lane][0] == step
+                       and (step not in AFTER or AFTER[step] in self.done)):
+                if self.failed:
+                    _fail(f"{self.failed} failed while {step} waited for the card")
+                self.cv.wait(1.0)
+            self.queue[lane].pop(0)
+            self.busy[lane] = step
+            self._note(lane, step, "granted")
+
+    def release(self, lane, step):
+        with self.cv:
+            if self.busy[lane] == step:
+                self.busy[lane] = None
+                self.done.add(step)
+                self._note(lane, step, "released")
+                self.cv.notify_all()
+
+    def fail(self, who):
+        with self.cv:
+            self.failed = who
+            self.cv.notify_all()
+
+    @contextlib.contextmanager
+    def lane(self, lane, step):
+        self.acquire(lane, step)
+        try:
+            yield
+        finally:
+            self.release(lane, step)
+
+    def report(self):
+        """Each step's times on the script's clock: asked for its lane,
+        granted it, gave it back."""
+        spans = {}
+        for t, lane, step, event in self.log:
+            spans.setdefault((lane, step), {})[event] = t
+        for (lane, step), ev in sorted(spans.items(),
+                                       key=lambda kv: min(kv[1].values())):
+            print(f"card lane {lane}: {step}: " + ", ".join(
+                f"{e} at {t:.1f} s" for e, t in ev.items()))
 
 
-def _join_vdb_production(proc):
-    """Wait for the production process, print its output, fail with it."""
-    out, _ = proc.communicate()
-    print(out, end="")
-    if proc.returncode != 0:
-        _fail(f"the vdb production process exited with {proc.returncode}")
+class _FreeMemory:
+    """The least free memory of the card (every process's allocations
+    together), sampled every second, and when it was seen."""
+
+    def __init__(self, t_start):
+        self.t_start, self.least, self.total = t_start, None, None
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+        self.thread.start()
+
+    def _sample(self):
+        while not self.stop.wait(1.0):
+            free, self.total = torch.cuda.mem_get_info()
+            if self.least is None or free < self.least[0]:
+                self.least = (free, time.perf_counter() - self.t_start)
+
+    def report(self):
+        self.stop.set()
+        self.thread.join()
+        free, t = self.least
+        print(f"least free card memory: {free / 2**30:.2f} of {self.total / 2**30:.2f} GiB, "
+              f"at {t:.1f} s")
+
+
+class _Helper:
+    """This script in another process on the same card (`flag`); a thread
+    reads its output, asks the card for the lanes it requests and answers
+    with a line on its input once granted."""
+
+    def __init__(self, flag, card):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.flag, self.card, self.lines, self.held = flag, card, [], set()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), flag], cwd=here,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env={**os.environ, "PYTHONUNBUFFERED": "1"})
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            if line.startswith(LANE_MARK):
+                _, verb, lane, step = line.split(maxsplit=3)
+                step = step.strip()
+                if verb == "want":
+                    self.card.acquire(lane, step)
+                    self.held.add((lane, step))
+                    self.proc.stdin.write("go\n")
+                    self.proc.stdin.flush()
+                else:
+                    self.card.release(lane, step)
+                    self.held.discard((lane, step))
+        if self.proc.wait() != 0:
+            self.card.fail(self.flag)
+        for lane, step in self.held:
+            self.card.release(lane, step)
+
+    def result(self):
+        """Its output, printed; its last line as JSON; fails with it."""
+        self.thread.join()
+        print("".join(self.lines), end="")
+        if self.proc.returncode != 0:
+            _fail(f"the {self.flag} process exited with {self.proc.returncode}")
+        return json.loads(self.lines[-1])
+
+
+def _join(helpers, card):
+    """Wait for every helper and return their results; fail as soon as one
+    fails."""
+    while any(h.proc.poll() is None for h in helpers) and not card.failed:
+        time.sleep(1.0)
+    failed = [h for h in helpers if h.flag == card.failed]  # its result() fails
+    return [h.result() for h in failed + helpers]
+
+
+@contextlib.contextmanager
+def _lane(lane, step):
+    """In a helper: wait until the main process grants `lane` to `step`;
+    give it back at the end."""
+    print(f"{LANE_MARK} want {lane} {step}", flush=True)
+    if sys.stdin.readline() != "go\n":
+        _fail(f"the main process did not grant the card to {step}")
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the cached blocks go back to the card for the other lanes
+        print(f"{LANE_MARK} done {lane} {step}", flush=True)
+
+
+def vdb_light_process(card, dev, golden):
+    """The light vdb sets (VDB_LIGHT_FLAG): set up beside the kernel
+    phases, then the row update and the block path on the heavy lane, then
+    the golden chain.  The last line is the paths' launch counts."""
+    launches = {}
+    vdb = _phase("vdb light set-up", phase_vdb_light_setup, card, dev, golden)
+    with _lane("H", HEAVY_ORDER[0]):
+        counts, rows_db, rows_root = _phase("vdb row update", phase_vdb_update, card, vdb,
+                                            launches)
+        _phase("vdb block tree + IVC", phase_vdb_block_ivc, card, vdb, rows_db, rows_root,
+               launches)
+    with _lane("O", OTHER_ORDER[3]):
+        _phase("vdb light golden chain", phase_vdb_chain, card, vdb, golden)
+    print(json.dumps({"launches": launches, "row_update": counts}))
+
+
+def vdb_production_process(card, dev, golden):
+    """The production vdb sets and their chain (VDB_PRODUCTION_FLAG)."""
+    vdb = _phase("vdb production set-up", phase_vdb_production_setup, card, dev, golden)
+    with _lane("O", OTHER_ORDER[1]):
+        _phase("vdb production chain", phase_vdb_production_chain, card, vdb, golden)
+    print(json.dumps({"launches": {}}))
+
+
+def extraction_process(card, dev, rgolden, xgolden):
+    """The production recursion and the extraction phases (EXTRACTION_FLAG):
+    the framework, its proofs on the other lane, the extraction set-up,
+    then the storage trie and its kernel shapes on the heavy lane after the
+    block path.  The last line is the paths' launch counts and the shapes'
+    max_abs_err."""
+    launches = {}
+    fw = _phase("recursion production set-up", _framework, "production (CircuitConfig)",
+                CircuitConfig(), dev, rgolden)
+    with _lane("O", OTHER_ORDER[0]):
+        _phase("recursion production", phase_recursion_production, card, fw, launches)
+    del fw
+    vx = _phase("extraction set-up", phase_extraction_setup, card, dev, xgolden)
+    with _lane("H", HEAVY_ORDER[1]):
+        _, keys = _phase("extraction storage trie", phase_extraction, card, vx, xgolden,
+                         launches)
+        err = _phase("extraction kernel shapes", phase_extraction_shapes, card, keys)
+    print(json.dumps({"launches": launches, "max_abs_err": err}))
 
 
 def main():
@@ -1414,60 +1919,78 @@ def main():
         rgolden = json.load(f)
     with open(os.path.join(TESTDATA, "vdb_golden.json")) as f:
         vgolden = json.load(f)
+    with open(os.path.join(TESTDATA, "extraction_golden.json")) as f:
+        xgolden = json.load(f)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
+    if sys.argv[1:] == [VDB_LIGHT_FLAG]:
+        vdb_light_process(card, dev, vgolden)
+        return 0
     if sys.argv[1:] == [VDB_PRODUCTION_FLAG]:
-        phase_vdb_production(card, dev, vgolden)
+        vdb_production_process(card, dev, vgolden)
+        return 0
+    if sys.argv[1:] == [EXTRACTION_FLAG]:
+        extraction_process(card, dev, rgolden["production"], xgolden)
         return 0
     t_start = time.perf_counter()
     launches = {}
 
-    # the kernels, the tree-node batches, the row update and the block-tree
-    # path are timed alone on the card; the production vdb process, whose
-    # set-up is host-bound with short bursts on the card, overlaps the
-    # recursion and the light vdb set-up
-    sass = _phase("toolchain", phase_toolchain, card)
-    p1 = _phase("P1 probe", phase_probe, card)
-    k1_err, k1_times = _phase("K1", phase_k1, card)
-    k1m_err, k1m_times = _phase("K1 Merkle entries", phase_k1_merkle, card)
-    k2_err, k2_times = _phase("K2", phase_k2, card)
-    k2c_err, k2c_times = _phase("K2c", phase_k2c, card)
-    torch.cuda.empty_cache()
-    light, production = _phase("tree nodes", phase_tree_nodes, card, dev, launches)
-    _phase("tree-node timing", phase_timing, card,
-           {"tree_node_proofs_per_s": light,
-            "tree_node_proofs_per_s_production": production})
-    del light, production
-    torch.cuda.empty_cache()
-    vdb_production = _start_vdb_production()
+    # the kernels are built first; then three processes of this script set
+    # up the vdb and extraction sets on the host (with the fixed
+    # commitments' short launches) beside the kernel phases and the
+    # tree-node timing, which hold the whole card; after them every step
+    # that proves takes a lane of the card (see _Card)
+    builds = _phase("kernel builds", phase_builds)
+    lanes = _Card(t_start, "kernel phases and tree-node timing")
+    helpers = [_Helper(flag, lanes) for flag in HELPERS]
+    memory = _FreeMemory(t_start)
     try:
-        _phase("recursion light", phase_recursion_light, card, dev, rgolden["light"],
-               launches)
+        sass = _phase("toolchain", phase_toolchain, card, builds)
+        p1 = _phase("P1 probe", phase_probe, card)
+        k1_err, k1_times = _phase("K1", phase_k1, card)
+        k1m_err, k1m_times = _phase("K1 Merkle entries", phase_k1_merkle, card)
+        k2_err, k2_times = _phase("K2", phase_k2, card)
+        k2c_err, k2c_times = _phase("K2c", phase_k2c, card)
         torch.cuda.empty_cache()
-        _phase("recursion production", phase_recursion_production, card, dev,
-               rgolden["production"], launches)
+        light, production = _phase("tree nodes", phase_tree_nodes, card, dev, launches)
+        _phase("tree-node timing", phase_timing, card,
+               {"tree_node_proofs_per_s": light,
+                "tree_node_proofs_per_s_production": production})
+        del light, production
         torch.cuda.empty_cache()
-        vdb = _phase("vdb light", phase_vdb_light, card, dev, vgolden)
+        lanes.release("H", "kernel phases and tree-node timing")
+        lanes.release("O", "kernel phases and tree-node timing")
+        fw = _phase("recursion light set-up", _framework, "light (test_config)",
+                    test_config(), dev, rgolden["light"])
+        with lanes.lane("O", OTHER_ORDER[2]):
+            _phase("recursion light", phase_recursion_light, card, fw, rgolden["light"],
+                   launches)
+            del fw
+            torch.cuda.empty_cache()
+        results = _phase("the other processes (join)", _join, helpers, lanes)
     except BaseException:
-        vdb_production.kill()
-        vdb_production.wait()
+        for h in helpers:
+            if h.proc.poll() not in (None, 0):
+                print("".join(h.lines), end="")
+            h.proc.kill()
+            h.proc.wait()
         raise
-    _phase("vdb production (join)", _join_vdb_production, vdb_production)
-    counts, rows_db, rows_root = _phase("vdb row update", phase_vdb_update, card, vdb,
-                                        launches)
-    _phase("vdb block tree + IVC", phase_vdb_block_ivc, card, vdb, rows_db, rows_root,
-           launches)
+    lanes.report()
+    memory.report()
+    for r in results:
+        launches.update(r["launches"])
+    counts = results[0]["row_update"]
+    x = results[2]
 
     def by_path(name):
         return {p: c[name] for p, c in launches.items()}
 
     k2_shape = f"iNTT (16*{WIRES}, 2^13)"
     k2c_shape = f"LDE (16*{WIRES}, 2^16)"
-    print(f"K1 launches in the {VDB_ROWS}-row update: {counts['K1']} "
-          f"({counts['K1 entries']}; 4013 before the Merkle entries)")
+    print(f"K1 launches in the {VDB_ROWS}-row update: {counts['K1']} ({counts['K1 entries']})")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
@@ -1478,7 +2001,7 @@ def main():
         {"name": "poseidon2_permute_planar", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/poseidon2.cu",
          "replaces": "mp2_tpu/ops/poseidon2_pallas.py:114",
-         "launches": counts["K1"], "max_abs_err": max(k1_err, k1m_err),
+         "launches": counts["K1"], "max_abs_err": max(k1_err, k1m_err, x["max_abs_err"]),
          **k1_times[1 << 20], "library_ms": None, "lanes": 1 << 20,
          "launches_by_path": by_path("K1"),
          "launches_by_entry_and_path": by_path("K1 entries"),
@@ -1493,7 +2016,7 @@ def main():
         {"name": "ntt_four_step_t", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/ntt_t.cu",
          "replaces": "mp2_tpu/ops/ntt_pallas.py:526",
-         "launches": counts["K2c"], "max_abs_err": k2c_err,
+         "launches": counts["K2c"], "max_abs_err": max(k2c_err, x["max_abs_err"]),
          **k2c_times[k2c_shape], "library_ms": None, "shape": k2c_shape,
          "launches_by_path": by_path("K2c"), "by_shape": k2c_times,
          "sass": sass["K2c"]},
@@ -1507,4 +2030,10 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # the phases' circuits, frameworks and tensors are left to the operating
+    # system: freeing their millions of objects one by one at interpreter
+    # exit would only delay the exit
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -537,7 +537,7 @@ class VerifiableDbCircuits:
             raise NotImplementedError(
                 "the extraction-bound block members (block_leaf_bound, "
                 "block_parent_bound) wait for the final-extraction circuits "
-                "(ROADMAP Queue 1 item 3)")
+                "(ROADMAP Queue 1 item 3b)")
         self.config = config
         self.cells = RecursionFramework(config, NUM_USER_PIS, set_height=2,
                                         device=device)

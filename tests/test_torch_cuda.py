@@ -242,3 +242,37 @@ def test_fixed_cache_warm_compile_on_card(cuda, tmp_path, monkeypatch):
     shas = [[proof_sha256(proof_to_dict(p)) for p in prove_batch(d, *tree_node_batch(d, i, 2, 0))]
             for d, i in ((cold, inputs), (warm, warm_inputs))]
     assert shas[0] == shas[1]
+
+
+@pytest.mark.cuda
+def test_keccak_circuit_proved_on_card(cuda, monkeypatch):
+    """The single-block keccak256_fixed circuit of
+    tests/test_keccak_gadget.py:24 compiled and proved on the card and
+    accepted by the port's verifier; its witness equals the CPU build's and
+    its public inputs are the host keccak-256 of the message."""
+    from mp2_tpu_torch.circuit.builder import CircuitBuilder
+    from mp2_tpu_torch.circuit.gadgets.keccak import bits_to_u32s, keccak256_fixed, set_bytes
+    from mp2_tpu_torch.prover import prove as prove_mod
+    from mp2_tpu_torch.utils.keccak import keccak256
+
+    msg = bytes(range(64))
+
+    def build(device):
+        b = CircuitBuilder(test_config())
+        byte_ts = b.add_inputs(len(msg))
+        b.register_public_inputs(bits_to_u32s(b, keccak256_fixed(b, byte_ts)))
+        data = b.build(device)
+        inputs = {}
+        set_bytes(inputs, byte_ts, msg)
+        return data, data.generate_witness(inputs)
+
+    data, w = build(cuda)
+    assert data.fixed_lde.device.type == "cuda"
+    bits = [(byte >> k) & 1 for byte in keccak256(msg) for k in range(8)]
+    pis = [sum(bit << k for k, bit in enumerate(bits[i:i + 32])) for i in range(0, 256, 32)]
+    proof = prove_mod.prove(data, w, pis)
+    assert verify(data, proof)
+    monkeypatch.setattr(prove_mod.CircuitData, "_build_fixed", lambda self: None)
+    cpu_data, cpu_w = build("cpu")
+    assert cpu_data.n == data.n
+    np.testing.assert_array_equal(cpu_w, w)

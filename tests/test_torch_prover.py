@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from mp2_tpu.field import goldilocks as jgl
+from mp2_tpu.prover import fri as jfri
 from mp2_tpu.prover import ntt as jntt
 from mp2_tpu.prover.batch import BatchedMerkleTree as JBatchedMerkleTree
 from mp2_tpu.prover.batch import permutation_count as jpermutation_count
@@ -25,10 +26,11 @@ from mp2_tpu.recursion.tp2_backend import _build_cells_node as jbuild_cells_node
 from mp2_tpu.recursion.tp2_backend import _build_tree_node as jbuild_tree_node
 from mp2_tpu_torch import convert
 from mp2_tpu_torch.field import goldilocks as gl
-from mp2_tpu_torch.prover import ntt
+from mp2_tpu_torch.prover import fri, ntt
 from mp2_tpu_torch.prover.batch import permutation_count, prove_batch
 from mp2_tpu_torch.prover.config import test_config
 from mp2_tpu_torch.prover.merkle import BatchedMerkleTree, MerkleTree, verify_merkle_proof
+from mp2_tpu_torch.prover.prove import SHIFT
 from mp2_tpu_torch.prover.serde import proof_from_dict, proof_sha256, proof_to_dict
 from mp2_tpu_torch.prover.verify import verify
 from mp2_tpu_torch.recursion.tp2_backend import (
@@ -62,6 +64,18 @@ def test_ntt_matches_reference(log_n):
             np.testing.assert_array_equal(
                 gl.to_u64(ntt._ntt_four_step(t, inverse)),
                 gl.to_u64(ntt._ntt_small(t, inverse)))
+
+
+@pytest.mark.parametrize("log_n", [1, 2, 5, 9, 13])
+def test_fold_inverses_match_reference(log_n):
+    """FRI's fold table inv(2 x_i), made from one table of powers, against
+    the reference's inversion per point, at the LDE shift and the shifts
+    of the next two folds."""
+    shift = SHIFT
+    for _ in range(3):
+        np.testing.assert_array_equal(fri._fold_inv_2x(log_n, shift),
+                                      jfri._fold_inv_2x(log_n, shift))
+        shift = shift * shift % P
 
 
 def test_merkle_caps_match_reference():
@@ -185,7 +199,8 @@ def test_prove_batch_rejects_public_inputs_of_another_length(tree_node):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (and chip_smoke.py) leaves jax out
-    of sys.modules; the walk reaches the recursion and vdb slices' modules."""
+    of sys.modules; the walk reaches the recursion, vdb and extraction slices'
+    modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mp2_tpu_torch\n"
@@ -202,7 +217,12 @@ def test_port_imports_no_jax():
         "        'circuit.gadgets.curve', 'circuit.gadgets.u256',\n"
         "        'ryhope.updatetree', 'ryhope.scapegoat', 'ryhope.sbbst',\n"
         "        'ryhope.kvdb', 'vdb.digests', 'vdb.trees', 'vdb.circuits',\n"
-        "        'parallel.scheduler', 'prover.params']\n"
+        "        'parallel.scheduler', 'prover.params', 'utils.keccak',\n"
+        "        'utils.rlp', 'utils.trie', 'circuit.gadgets.keccak',\n"
+        "        'circuit.gadgets.bytes', 'extraction.storage_key',\n"
+        "        'extraction.columns', 'extraction.values',\n"
+        "        'extraction.column_gadget', 'extraction.mpt_circuits',\n"
+        "        'extraction.api']\n"
         "missing = [m for m in want if 'mp2_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
