@@ -20,7 +20,7 @@ from 2^15 to 2^20, at B=1 and 3, and at the LDE widths, where the K2 +
 torch-transpose four-step and the pad + coset-multiply + K2c composition it
 replaced are timed beside it, and the prover's `ntt`, `intt`, `lde` and
 `coset_intt` from 2^21 to 2^24 points, three K2c launches each).  Then it
-drives three paths:
+drives these paths:
 
   tree-node proofs (the map phase): batches of tree-node proofs with
   `prover/batch.prove_batch` at the light (`test_config`, B=32) and the
@@ -58,20 +58,32 @@ drives three paths:
   model, printed as `vdb_block_ivc_proofs_per_s`; and the sets at
   `CircuitConfig()`, with the chain to `rows_leaf` proved and verified;
 
-  the storage trie of extraction: the values-extraction set of the
-  pipeline's mapping table (`extraction/mpt_circuits.ValuesExtractionCircuits`
-  with `leaf_mapping`, `extension`, `branch1`, `branch2` and `branch3`
-  members of 2^14 to 2^16 rows, keccak, RLP and the MPT key chain
-  in-circuit) at `test_config()`, its set, member and circuit digests,
-  rows and wrap chains checked against
-  `mp2_tpu_torch/testdata/extraction_golden.json`, which the JAX package
-  wrote; then block 101's storage trie proved from its leaves to the
-  storage root through `prove_trie` (3 `leaf_mapping` and 2 `branch2`
-  proofs, each wrapped), the root verified and its public inputs held
-  against the host model `extract_storage_slots`, the 0x11 leaf's
-  envelope against the JAX package's proof, printed as
-  `extraction_storage_proofs_per_s`; then every K2c and K1 Merkle entry
-  shape that this path fed, held against its plain twin.
+  a block's extraction: the values-extraction set of the pipeline's
+  mapping table (`extraction/mpt_circuits.ValuesExtractionCircuits` with
+  `leaf_mapping`, `extension`, `branch1`, `branch2` and `branch3` members of
+  2^14 to 2^16 rows, keccak, RLP and the MPT key chain in-circuit), the
+  contract set (`extraction/final_circuits.ContractExtractionCircuits`:
+  `account_leaf`, `branch`, `extension`), the block framework over block
+  101's header offsets and the final set (`final_simple`, which verifies a
+  block, a contract and a values proof) at `test_config()`, their set,
+  member and circuit digests, rows and wrap chains checked against
+  `mp2_tpu_torch/testdata/extraction_golden.json` and
+  `mp2_tpu_torch/testdata/final_extraction_golden.json`, which the JAX
+  package wrote; then block 101's extraction as the pipeline proves it:
+  its storage trie from its leaves to the storage root through
+  `prove_trie` (3 `leaf_mapping` and 2 `branch2` proofs), the root verified
+  and its public inputs held against the host model
+  `extract_storage_slots`, the 0x11 leaf's envelope against the JAX
+  package's proof, printed as `extraction_storage_proofs_per_s`; then the
+  contract's state path (one `account_leaf`), the header and
+  `final_simple` over the three, each verified, the account leaf's and
+  the header's envelopes against the JAX package's proofs, the final
+  public inputs against the host models (`extract_block`,
+  `extract_contract`, `final_extraction`) and the JAX package's, their
+  metadata hash against the JAX package's, printed with the trie as
+  `extraction_block_proofs_per_s`; then every K2c and K1 Merkle entry
+  shape that this path fed, held against its plain twin and timed beside
+  its bound.
 
 Four processes of this script share the card.  The main one builds the
 kernels, then starts the other three, which set up their circuit sets on
@@ -79,18 +91,21 @@ the host (with the fixed commitments' short launches) while the main one
 runs the kernel phases, the tree-node batches and their timing, holding the
 whole card.  After that every step that proves takes one of two lanes of
 the card, which the main process grants: the heavy lane runs the row update
-with the block path (`--vdb-light`), then the storage trie with its kernel
-shapes (`--extraction`), one at a time, since each takes ~40 GiB of the
-card at its peak; the other lane runs the remaining steps one at a time:
-the production recursion (`--extraction`), the production vdb chain
+with the block path (`--vdb-light`), then block 101's extraction with its
+kernel shapes (`--extraction`), one at a time, since each takes ~40 GiB of
+the card at its peak; the other lane runs the remaining steps one at a
+time: the production recursion (main process), the production vdb chain
 (`--vdb-production`), the light recursion (main process) and the light vdb
-golden chain (`--vdb-light`); the trie also waits for the production vdb
-chain to end, so that the card keeps a few GiB free.  So no other step that
-proves runs beside the kernel phases and the tree-node timing, and each
-step of the heavy lane runs beside at most one step of the other lane.  The
-script prints each step's times on its clock (asked for its lane, granted
-it, gave it back), the least free card memory it saw, the other processes'
-output, and fails with them.  Each phase prints its wall.
+golden chain (`--vdb-light`); the extraction also waits for the production
+vdb chain to end, so that the card keeps a few GiB free.  The main process
+sets up both recursion frameworks after the timing, the light one first.
+So no other step that proves runs beside the kernel phases and the
+tree-node timing, and each step of the heavy lane runs beside at most one
+step of the other lane.  The script prints each step's times on its clock
+(asked for its lane, granted it, gave it back), the least free card memory
+it saw, the other processes' output, and fails with them.  Each phase
+prints its wall.  A plain twin that takes over a second is timed with one
+call.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched.  Any
@@ -101,6 +116,7 @@ CUDA card; imports no JAX.
 """
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -118,11 +134,18 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import torch  # noqa: E402
 
 from mp2_tpu_torch.extraction import api as XA
+from mp2_tpu_torch.extraction import final_circuits as XF
+from mp2_tpu_torch.extraction import metadata as XM
 from mp2_tpu_torch.extraction import storage_key as SK
 from mp2_tpu_torch.extraction import values as XV
+from mp2_tpu_torch.extraction.circuits import fixture_header_offsets
 from mp2_tpu_torch.extraction.columns import simple_column
+from mp2_tpu_torch.extraction.final_circuits import (BlockExtractionFramework,
+                                                     ContractExtractionCircuits,
+                                                     FinalExtractionCircuits)
 from mp2_tpu_torch.extraction.mpt_circuits import ValuesExtractionCircuits, mpt_pi_values
 from mp2_tpu_torch.field import goldilocks as gl
+from mp2_tpu_torch.field.ecgfp5 import Point
 from mp2_tpu_torch.hash import poseidon2 as p2
 from mp2_tpu_torch.hash import poseidon2_host as p2h
 from mp2_tpu_torch.ops import _nvcc
@@ -221,6 +244,24 @@ def _timed_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def _plain_timed(fn, reps):
+    """(fn(), its device time in ms) for a plain twin: one call between CUDA
+    events, and where that call took under a second the mean of `reps` more
+    (a plain twin's time is no yardstick: one call will do where it takes
+    seconds)."""
+    out, ms = _timed_once(fn)
+    if ms < 1000:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+    return out, ms
 
 
 def _max_abs_err(a, b):
@@ -355,24 +396,27 @@ def phase_builds():
 
 
 def phase_toolchain(card, builds):
-    print(card)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}")
+    """The toolchain's versions, each build's ptxas lines and each kernel's
+    SASS counts (`cuobjdump`, one process per library, all at once).
+    Returns the lines to print and the counts: it runs in a thread beside
+    the kernel phases, which print their own lines meanwhile."""
+    lines = [card, f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+                   f"python {sys.version.split()[0]}"]
     nvcc = subprocess.run([_nvcc.nvcc(), "--version"], capture_output=True, text=True)
-    print("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
-    sass = {}
+    lines.append("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
+    with ThreadPoolExecutor(len(builds)) as ex:
+        sass = dict(zip(builds, ex.map(lambda b: _nvcc.sass_counts(b.path), builds.values())))
     for name, built in builds.items():
-        print(f"{name} build: nvcc {built.seconds:.3f} s -> {os.path.relpath(built.path)}")
+        lines.append(f"{name} build: nvcc {built.seconds:.3f} s -> "
+                     f"{os.path.relpath(built.path)}")
         for line in built.log.splitlines():
             if ("registers" in line or "spill" in line or "entry function" in line) and \
                     (name != "P1" or "_Z" not in line):
-                print("  ptxas: " + line.strip())
-        counts = _nvcc.sass_counts(built.path)
-        sass[name] = counts
-        for fn, (n_sass, n_mul) in counts.items():
+                lines.append("  ptxas: " + line.strip())
+        for fn, (n_sass, n_mul) in sass[name].items():
             if name != "P1":
-                print(f"  sass: {fn}: {n_sass} instructions, {n_mul} integer multiplies")
-    return sass
+                lines.append(f"  sass: {fn}: {n_sass} instructions, {n_mul} integer multiplies")
+    return lines, sass
 
 
 def phase_probe(card):
@@ -438,11 +482,12 @@ def phase_k1(card):
     for lanes in (LIGHT_BATCH, 128 * PROD_BATCH, 128 * LIGHT_BATCH, n,
                   (1 << 19) * PROD_BATCH):
         xs = gl.from_u64(rng.integers(0, gl.P, size=(12, lanes), dtype=np.uint64), dev)
-        a, b = K.permute_planar(xs), K.permute_planar_plain(xs)
+        a = K.permute_planar(xs)
+        b, p_ms = _plain_timed(lambda: K.permute_planar_plain(xs), 5)
         if not torch.equal(a, b):
             _fail(f"K1 disagrees with its plain version at {lanes} lanes")
+        del a, b
         k_ms = _time_ms(lambda: K.permute_planar(xs), 50 if lanes <= n else 10)
-        p_ms = _time_ms(lambda: K.permute_planar_plain(xs), 5 if lanes <= n else 2)
         bound_ms, bound_by = _bound(lanes * 12 * 8 * 2, lanes * P2_ISSUES)
         timings[lanes] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by}
@@ -571,11 +616,11 @@ def phase_k2(card):
         n = 1 << log_n
         x = _rand_rows(rng, (rows, n), dev)
         got = N.ntt_rows(x, inverse, **kw)
-        if not torch.equal(got, N.ntt_rows_plain(x, inverse, **kw)):
+        want, p_ms = _plain_timed(lambda: N.ntt_rows_plain(x, inverse, **kw), 2)
+        if not torch.equal(got, want):
             _fail(f"K2 disagrees with its plain version at {name}")
-        del got
+        del got, want
         k_ms = _time_ms(lambda: N.ntt_rows(x, inverse, **kw), 20)
-        p_ms = _time_ms(lambda: N.ntt_rows_plain(x, inverse, **kw), 2)
         bound_ms, bound_by = _bound(*_k2_work(rows, n, 0, kw.get("scale", False)))
         timings[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by}
@@ -625,12 +670,13 @@ def phase_k2(card):
             new = lambda: N.coset_intt_rows(x, shift)  # noqa: E731
             plain = lambda: N.coset_intt_rows_plain(x, shift)  # noqa: E731
             old = lambda: N.coset_intt_rows_plain(x, shift, N.ntt_rows)  # noqa: E731
-        if not torch.equal(new(), plain()) or not torch.equal(new(), old()):
+        want, p_ms = _plain_timed(plain, 2)
+        if not torch.equal(new(), want) or not torch.equal(new(), old()):
             _fail(f"K2's {kind} entry disagrees with its plain twin or the old "
                   f"composition at {name}")
+        del want
         k_ms = _time_ms(new, 20)
         old_ms = _time_ms(old, 20)
-        p_ms = _time_ms(plain, 2)
         bound_ms, bound_by = _bound(*_k2_entry_work(rows, log_n, kind))
         timings[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "composition_ms": old_ms}
@@ -756,14 +802,13 @@ def phase_k2c(card):
         n = 1 << log_n
         x = _rand_rows(rng, (rows, n), dev)
         got = T.ntt_four_step_t(x, inverse)
-        err = max(err, _max_abs_err(got, T.ntt_four_step_plain(x, inverse)))
-        if not torch.equal(got, T.ntt_four_step_plain(x, inverse)) or \
-                not torch.equal(got, _four_step_k2(x, inverse)):
+        want, p_ms = _plain_timed(lambda: T.ntt_four_step_plain(x, inverse), 2)
+        err = max(err, _max_abs_err(got, want))
+        if not torch.equal(got, want) or not torch.equal(got, _four_step_k2(x, inverse)):
             _fail(f"K2c disagrees with its plain version at {name}")
-        del got
+        del got, want
         k_ms = _time_ms(lambda: T.ntt_four_step_t(x, inverse), 20)
         old_ms = _time_ms(lambda: _four_step_k2(x, inverse), 20)
-        p_ms = _time_ms(lambda: T.ntt_four_step_plain(x, inverse), 2)
         bound_ms, bound_by = _bound(*_k2c_work(rows, n, inverse))
         timings[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "k2_transpose_ms": old_ms}
@@ -797,18 +842,18 @@ def phase_k2c(card):
             plain = lambda: T.coset_intt_t_plain(x, shift)  # noqa: E731
             old = lambda: T.coset_intt_t_plain(x, shift, T.ntt_four_step_t)  # noqa: E731
         got = new()
-        err = max(err, _max_abs_err(got, plain()))
-        if not torch.equal(got, plain()) or not torch.equal(got, old()):
+        want, p_ms = _plain_timed(plain, 2)
+        err = max(err, _max_abs_err(got, want))
+        if not torch.equal(got, want) or not torch.equal(got, old()):
             _fail(f"K2c's {kind} entry disagrees with its plain twin or the old "
                   f"composition at {name}")
         if kind == "coset_intt" and log_n == 16:
             x2 = T.lde_t(got[:, :1 << 13].contiguous(), 3, shift)
             if not torch.equal(T.coset_intt_t(x2, shift)[:, :1 << 13], got[:, :1 << 13]):
                 _fail("coset_intt_t(lde_t(c)) != c")
-        del got
+        del got, want
         k_ms = _time_ms(new, 20)
         old_ms = _time_ms(old, 20)
-        p_ms = _time_ms(plain, 2)
         bound_ms, bound_by = _bound(*_k2c_entry_work(rows, log_n, kind))
         timings[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "composition_ms": old_ms}
@@ -820,21 +865,22 @@ def phase_k2c(card):
     return err, timings
 
 
-def _k2c_entry_work(rows, log_n, kind):
-    """(bytes, multiplier issues) of an LDE at rate 3 (coefficients in,
+def _k2c_entry_work(rows, log_n, kind, rate=3):
+    """(bytes, multiplier issues) of an LDE at `rate` (coefficients in,
     2^log_n points out, a coset factor per coefficient after the first) or a
     coset iNTT (a factor per point) as the function needs them: the input
     read once and the output written once (the kernel's tables are its
-    design's choice, their products counted).  The LDE's four-step: pass 1's columns of n1 points hold one coefficient in 8, so
-    its first 3 stages only copy; then pass 2's columns and the middle
-    twiddle, which is 1 in the first row and column of the (n1, n2) view."""
+    design's choice, their products counted).  The LDE's four-step: pass 1's
+    columns of n1 points hold one coefficient in 2^rate, so its first `rate`
+    stages only copy; then pass 2's columns and the middle twiddle, which is
+    1 in the first row and column of the (n1, n2) view."""
     n = 1 << log_n
-    log1, log2 = T.passes(log_n)  # two passes at the timed shapes
+    log1, log2 = T.passes(log_n)  # two passes up to 2^20 points
     n1, n2 = 1 << log1, 1 << log2
     if kind == "lde":
-        n_in = n >> 3
+        n_in = n >> rate
         nbytes = 8 * rows * (n_in + n)
-        muls = (n2 * _dit_muls(log1, 3) + n1 * _dit_muls(log2) + (n - n1 - n2 + 1)
+        muls = (n2 * _dit_muls(log1, rate) + n1 * _dit_muls(log2) + (n - n1 - n2 + 1)
                 + (n_in - 1))
     else:
         nbytes = 16 * rows * n
@@ -1484,15 +1530,23 @@ def phase_vdb_production_chain(card, vdb, golden):
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {card}")
 
 
-# the mapping table of tests/test_circuit_pipeline.py:30 and block 101's
-# storage trie as mp2_tpu/models/pipeline.py:139-156 builds it
+# the mapping table of tests/test_circuit_pipeline.py:29-37 (chain 1, slot 4,
+# blocks 100 and 101 as mp2_tpu/models/pipeline.py:139-182 builds them), but
+# not its contract: that test's ADDR (:19) is bytes(range(10, 30)), while
+# this script, tests/test_extraction_circuits.py:23,
+# tests/test_final_extraction.py:44 and both golden files
+# (testdata/extraction_golden.json, testdata/final_extraction_golden.json)
+# use bytes(range(20)); the golden files depend on it
 EXTRACTION_CONTRACT = bytes(range(20))
 EXTRACTION_CHAIN_ID = 1
 EXTRACTION_SLOT = 4
-EXTRACTION_ENTRIES = {b"\x11": 150, b"\x22": 200, b"\x33": 50}
-EXTRACTION_UNRELATED = 7  # the value of the trie's leaf outside the table
+EXTRACTION_BLOCKS = ({b"\x11": 100, b"\x22": 200}, {b"\x11": 150, b"\x22": 200, b"\x33": 50})
+EXTRACTION_FIRST_BLOCK = 100
+EXTRACTION_UNRELATED = 7  # the value of the storage tries' leaf outside the table
 EXTRACTION_ARITIES = (1, 2, 3)  # the pipeline's branch members
 EXTRACTION_PROOFS = ["leaf_mapping"] * 3 + ["branch2"] * 2
+# block 101's state path (its state trie holds one account), header and final
+FINAL_EXTRACTION_PROOFS = ["account_leaf", "block", "final_simple"]
 
 
 def _extraction_table():
@@ -1505,11 +1559,64 @@ def _extraction_table():
     return simple_column(EXTRACTION_SLOT, value_id), key_id, value_id
 
 
+def _extraction_chain():
+    """Blocks 100 and 101 as mp2_tpu/models/pipeline.py:139-182 (make_chain)
+    builds them: each block's storage trie holds its mapping entries and the
+    unrelated leaf, its state trie one account over that storage root, and
+    its RLP header the state root and the keccak of the parent's header."""
+    blocks, parent = [], keccak256(b"genesis")
+    for number, entries in enumerate(EXTRACTION_BLOCKS, start=EXTRACTION_FIRST_BLOCK):
+        storage = MPT(secure=True)
+        for k, v in entries.items():
+            storage.insert(SK.mapping_location(EXTRACTION_SLOT, k), rlp.encode_int(v))
+        storage.insert(keccak256(b"unrelated"), rlp.encode_int(EXTRACTION_UNRELATED))
+        state = MPT(secure=True)
+        state.insert(EXTRACTION_CONTRACT, rlp.encode(
+            [b"\x01", b"\x00", storage.root_hash(), keccak256(b"code")]))
+        header = rlp.encode([parent, keccak256(b"uncles"), bytes(20), state.root_hash(),
+                             keccak256(b"tx"), keccak256(b"rc"), b"\x00" * 32, b"\x01",
+                             number.to_bytes(4, "big")])
+        blocks.append(SimpleNamespace(number=number, entries=entries, storage=storage,
+                                      state=state, header=header))
+        parent = keccak256(header)
+    return blocks
+
+
+def _set_record(fw):
+    """A set's digest, standard n, member order and, per member, its digest,
+    circuit digest, rows and wrap chain, as the golden records hold them."""
+    return {"set_digest": list(fw.set_digest), "standard_n": fw.standard.n,
+            "member_order": list(fw.member_order),
+            "members": {m: {"digest": list(fw.members[m].digest),
+                            "circuit_digest": list(fw.members[m].data.circuit_digest),
+                            "n": fw.members[m].data.n,
+                            "wrap_chain_n": [fw.members[m].data.n] + [
+                                wc.data.n for wc in fw._wrap_chain_for(fw.members[m].data)]}
+                        for m in fw.member_order}}
+
+
+def _check_set(name, fw, g, wall):
+    """Print a set's shape and fail unless its record equals the golden one."""
+    rec = _set_record(fw)
+    print(f"{name} set (test_config): built and finalized in {wall:.3f} s on the host and "
+          f"the card; standard n={fw.standard.n}; members " + ", ".join(
+              f"{m} {r['n']} rows, wrap chain {r['wrap_chain_n']}"
+              for m, r in rec["members"].items()))
+    for key in ("set_digest", "standard_n", "member_order"):
+        if rec[key] != g[key]:
+            _fail(f"{name}: the set's {key} differs from the JAX package's")
+    for m, r in rec["members"].items():
+        if r != g["members"][m]:
+            _fail(f"{name}: member {m}'s digest, circuit digest, rows or wrap chain "
+                  f"differ from the JAX package's")
+    print(f"{name} set: set digest {fw.set_digest[0]:#x}..., standard n, member and "
+          f"circuit digests, rows and wrap chains equal to the JAX package's")
+
+
 def phase_extraction_setup(card, dev, golden):
     """The values-extraction set of the pipeline's mapping table
-    (mp2_tpu/models/circuit_pipeline.py:132-136) at test_config(): set
-    digest, standard n, each member's digest, circuit digest, rows and wrap
-    chain against the golden record of the JAX package."""
+    (mp2_tpu/models/circuit_pipeline.py:132-136) at test_config() against
+    the golden record of the JAX package."""
     column, key_id, value_id = _extraction_table()
     if [key_id, value_id] != [golden["table"]["key_id"], golden["table"]["value_id"]]:
         _fail("extraction: the table's column identifiers differ from the JAX package's")
@@ -1517,36 +1624,44 @@ def phase_extraction_setup(card, dev, golden):
     vx = ValuesExtractionCircuits([column], value_id, config=test_config(),
                                   mapping=(EXTRACTION_SLOT, key_id),
                                   branch_arities=EXTRACTION_ARITIES, device=dev)
-    wall = time.perf_counter() - t0
-    fw, g = vx.fw, golden["set"]
-    members = {m: {"digest": list(fw.members[m].digest),
-                   "circuit_digest": list(fw.members[m].data.circuit_digest),
-                   "n": fw.members[m].data.n,
-                   "wrap_chain_n": [fw.members[m].data.n] + [
-                       wc.data.n for wc in fw._wrap_chain_for(fw.members[m].data)]}
-               for m in fw.member_order}
-    print(f"extraction set (test_config): built and finalized in {wall:.3f} s on the host "
-          f"and the card; standard n={fw.standard.n}; members "
-          + ", ".join(f"{m} {r['n']} rows, wrap chain {r['wrap_chain_n']}"
-                      for m, r in members.items()))
-    if (list(fw.set_digest) != g["set_digest"] or fw.standard.n != g["standard_n"]
-            or list(fw.member_order) != g["member_order"]):
-        _fail("extraction: set digest, standard n or members differ from the JAX package's")
-    for m, rec in members.items():
-        if rec != g["members"][m]:
-            _fail(f"extraction: member {m}'s digest, circuit digest, rows or wrap chain "
-                  f"differ from the JAX package's")
-    print(f"extraction set: set digest {fw.set_digest[0]:#x}..., standard n, member and "
-          f"circuit digests, rows and wrap chains equal to the JAX package's")
+    _check_set("extraction values", vx.fw, golden["set"], time.perf_counter() - t0)
     return vx
 
 
+def phase_final_extraction_setup(card, dev, vx, golden):
+    """The contract set, the block framework over block 101's header offsets
+    and the final set over them and the values set, at test_config(), as
+    mp2_tpu/models/circuit_pipeline.py:137-145 builds them, each against the
+    golden record of the JAX package."""
+    header = _extraction_chain()[-1].header
+    offsets = fixture_header_offsets(header)
+    if header.hex() != golden["host"]["header_rlp"] or offsets != golden["host"]["header_offsets"]:
+        _fail("final extraction: block 101's header or its offsets differ from the JAX package's")
+    if list(vx.fw.set_digest) != golden["sets"]["values_set_digest"]:
+        _fail("final extraction: the values set differs from the one the JAX package's "
+              "final set verifies")
+    built = {}
+    for name, build in (
+            ("contract", lambda: ContractExtractionCircuits(EXTRACTION_CONTRACT,
+                                                            config=test_config(), device=dev)),
+            ("block", lambda: BlockExtractionFramework(config=test_config(), device=dev,
+                                                       **offsets)),
+            ("final", lambda: FinalExtractionCircuits(built["block"], built["contract"], vx,
+                                                      config=test_config(), device=dev))):
+        t0 = time.perf_counter()
+        built[name] = build()
+        _check_set(f"extraction {name}", built[name].fw, golden["sets"][name],
+                   time.perf_counter() - t0)
+    return built["contract"], built["block"], built["final"]
+
+
 @contextlib.contextmanager
-def _member_log(fw, members, envs):
-    """Each member proof of `fw` on the serial path (prove_leaf,
-    prove_aggregation): its wall, the time in witness generation (member and
-    wraps) and its envelope (a measurement hook of this script only; the
-    prove_batch share comes from a _StageLog around it)."""
+def _member_log(fws, members, envs):
+    """Each member proof of the frameworks `fws` on the serial path
+    (prove_leaf, prove_aggregation): its wall, the time in witness
+    generation (member and wraps) and its envelope (a measurement hook of
+    this script only; the prove_batch share comes from a _StageLog around
+    it)."""
     clock = [0.0]
     generate_witness = CircuitData.generate_witness
 
@@ -1557,12 +1672,12 @@ def _member_log(fw, members, envs):
         finally:
             clock[0] += time.perf_counter() - t0
 
-    def logged(prove_fn):
+    def logged(fw, prove_fn):
         def call(name, *args, **kw):
             t0, w0 = time.perf_counter(), clock[0]
             env = prove_fn(name, *args, **kw)
             torch.cuda.synchronize()
-            members.append({"member": name, "s": time.perf_counter() - t0,
+            members.append({"member": name, "fw": fw, "s": time.perf_counter() - t0,
                             "witness_s": clock[0] - w0})
             envs.append((name, args, env))
             return env
@@ -1570,31 +1685,59 @@ def _member_log(fw, members, envs):
         return call
 
     CircuitData.generate_witness = timed_witness
-    fw.prove_leaf = logged(fw.prove_leaf)
-    fw.prove_aggregation = logged(fw.prove_aggregation)
+    for fw in fws:
+        fw.prove_leaf = logged(fw, fw.prove_leaf)
+        fw.prove_aggregation = logged(fw, fw.prove_aggregation)
     try:
         yield
     finally:
         CircuitData.generate_witness = generate_witness
-        del fw.prove_leaf, fw.prove_aggregation
+        for fw in fws:
+            del fw.prove_leaf, fw.prove_aggregation
 
 
-def phase_extraction(card, vx, golden, launches):
+def _print_members(what, members, log, wall):
+    """Each member proof's wall split into prove_batch (the member's and its
+    wraps', the next stages of the log), witness generation and other; then
+    the path's split and each prove_batch's launches."""
+    first = 0
+    for m in members:
+        data = m["fw"].members[m["member"]].data
+        last = first + 1 + len(m["fw"]._wrap_chain_for(data))
+        own, first = log.stages[first:last], last
+        pb = sum(st["s"] for st in own)
+        walls = " + ".join(f"{st['s']:.3f}" for st in own)
+        ns = ", ".join(str(st["n"]) for st in own)
+        print(f"  {m['member']} ({data.n} rows): {m['s']:.3f} s: prove_batch {pb:.3f} s "
+              f"({walls} at n {ns}), witness generation {m['witness_s']:.3f} s, other "
+              f"{m['s'] - pb - m['witness_s']:.3f} s")
+    if first != len(log.stages):
+        _fail(f"{what}: {len(log.stages)} prove_batch calls, not {first}")
+    prove_s = sum(st["s"] for st in log.stages)
+    wit_s = sum(m["witness_s"] for m in members)
+    print(f"{what} time: prove_batch {prove_s:.3f} s ({prove_s / wall:.3f}), witness "
+          f"generation {wit_s:.3f} s ({wit_s / wall:.3f}), other "
+          f"{wall - prove_s - wit_s:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for st in log.stages:
+        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
+              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
+
+
+def phase_extraction(card, vx, block, golden, launches):
     """Block 101's storage trie proved from its leaves to the storage root
     through prove_trie, as mp2_tpu/models/circuit_pipeline.py:159-166 calls
     it, on the default path (each leaf and branch a proof of its own, each
     wrapped); timed; the root verified and held against the host model
     extract_storage_slots, the 0x11 leaf against the JAX package's proof.
-    Returns the kernel shapes that the path fed."""
+    Returns the root's envelope and PIs, the wall and the kernel shapes that
+    the path fed."""
     g = golden["trie"]
-    trie = MPT(secure=True)
-    for k, v in EXTRACTION_ENTRIES.items():
-        trie.insert(SK.mapping_location(EXTRACTION_SLOT, k), rlp.encode_int(v))
-    trie.insert(keccak256(b"unrelated"), rlp.encode_int(EXTRACTION_UNRELATED))
+    trie = block.storage
     if trie.root_hash().hex() != g["root_hash"]:
         _fail("extraction: block 101's trie has another root than the JAX package's")
     column, key_id, _ = _extraction_table()
-    locations = {k: SK.mapping_location(EXTRACTION_SLOT, k) for k in sorted(EXTRACTION_ENTRIES)}
+    locations = {k: SK.mapping_location(EXTRACTION_SLOT, k) for k in sorted(block.entries)}
     host = XA.extract_storage_slots(trie, [column], [
         XA.SlotEntry(EXTRACTION_SLOT, loc, mapping_key=k, key_id=key_id)
         for k, loc in locations.items()])
@@ -1609,13 +1752,13 @@ def phase_extraction(card, vx, golden, launches):
     torch.cuda.reset_peak_memory_stats()
     os.environ["MP2_TRACE"] = "1"  # the runtime's spans, one stderr line each
     _reset_counts()
-    with _StageLog() as log, _ShapeLog() as shapes, _member_log(vx.fw, members, envs):
+    with _StageLog() as log, _ShapeLog() as shapes, _member_log([vx.fw], members, envs):
         t0 = time.perf_counter()
         root_env, root_pis = vx.prove_trie(paths, {k: k for k in paths})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     del os.environ["MP2_TRACE"]
-    counts = _read_counts("extraction", launches)
+    _read_counts("extraction storage trie", launches)
 
     proved = [m["member"] for m in members]
     if proved != EXTRACTION_PROOFS:
@@ -1634,43 +1777,128 @@ def phase_extraction(card, vx, golden, launches):
     leaf_sha = proof_sha256(proof_to_dict(leaf_env.proof))
     if leaf_env.public_inputs != gl_leaf["public_inputs"] or leaf_sha != gl_leaf["proof_sha256"]:
         _fail(f"extraction: the 0x11 leaf's envelope differs from the JAX package's ({leaf_sha})")
-    prove_s = sum(st["s"] for st in log.stages)
-    wit_s = sum(m["witness_s"] for m in members)
     print(f"extraction storage trie: {len(proved)} member proofs ({', '.join(proved)}), each "
           f"wrapped, in {wall:.3f} s; root verified, PIs 0..30 = extract_storage_slots's "
           f"(N {root_pis[30]}), S {root_pis[95]}; the 0x11 leaf's envelope equal to the JAX "
           f"package's ({leaf_sha[:12]})")
     print(f"extraction_storage_proofs_per_s {len(proved) / wall:.4f} ({len(proved)} member "
           f"proofs / {wall:.3f} s wall, wraps included); {card}")
-    first = 0
-    for m in members:
-        # each member's proof and its wraps are the next stages of the log
-        last = first + 1 + len(vx.fw._wrap_chain_for(vx.fw.members[m["member"]].data))
-        own, first = log.stages[first:last], last
-        pb = sum(st["s"] for st in own)
-        walls = " + ".join(f"{st['s']:.3f}" for st in own)
-        ns = ", ".join(str(st["n"]) for st in own)
-        print(f"  {m['member']}: {m['s']:.3f} s: prove_batch {pb:.3f} s ({walls} at n {ns}), "
-              f"witness generation {m['witness_s']:.3f} s, other "
-              f"{m['s'] - pb - m['witness_s']:.3f} s")
-    if first != len(log.stages):
-        _fail(f"extraction: {len(log.stages)} prove_batch calls, not {first}")
-    print(f"extraction time: prove_batch {prove_s:.3f} s ({prove_s / wall:.3f}), witness "
-          f"generation {wit_s:.3f} s ({wit_s / wall:.3f}), other "
-          f"{wall - prove_s - wit_s:.3f} s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    for st in log.stages:
-        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
-              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
-    return counts, shapes.keys
+    _print_members("extraction storage trie", members, log, wall)
+    return root_env, root_pis, wall, shapes.keys
+
+
+def phase_final_extraction(card, cx, bx, fx, block, values_env, values_pis, golden,
+                           launches):
+    """Block 101's extraction from its storage root on, as
+    mp2_tpu/models/circuit_pipeline.py:167-171 proves it: the contract's
+    state path (one account_leaf: the state trie holds one account), the
+    header and final_simple over the three, each a batch of one, wrapped;
+    timed; each verified, the account leaf's and the header's envelopes
+    against the JAX package's proofs, the final PIs against the host models
+    (extract_block, extract_contract, extract_storage_slots, final_extraction)
+    and the JAX package's, DV against the trie root's, DM against the trie
+    root's plus the contract's metadata digest, and the metadata hash against
+    the JAX package's.  Returns the wall and the kernel shapes that the path
+    fed."""
+    column, key_id, _ = _extraction_table()
+    values = XA.extract_storage_slots(block.storage, [column], [
+        XA.SlotEntry(EXTRACTION_SLOT, SK.mapping_location(EXTRACTION_SLOT, k), mapping_key=k,
+                     key_id=key_id) for k in sorted(block.entries)])
+    block_out = XA.extract_block(block.header)
+    contract_out = XA.extract_contract(block.state, EXTRACTION_CONTRACT)
+    final_out = XA.final_extraction(block_out, contract_out, values, block.storage.root_hash(),
+                                    block.state.root_hash())
+    host_pis = (pack_bytes_be(final_out.block_hash) + pack_bytes_be(final_out.prev_block_hash)
+                + [final_out.block_number] + final_out.values_digest.to_fields()
+                + final_out.metadata_digest.to_fields() + [values.n_leaves])
+    if host_pis != golden["host"]["final_public_inputs"]:
+        _fail("final extraction: the host models' final PIs differ from the JAX package's")
+    path = block.state.get_proof(EXTRACTION_CONTRACT)
+
+    members, envs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["MP2_TRACE"] = "1"  # the runtime's spans, one stderr line each
+    _reset_counts()
+    with _StageLog() as log, _ShapeLog() as shapes, \
+            _member_log([cx.fw, bx.fw, fx.fw], members, envs):
+        t0 = time.perf_counter()
+        contract_env, _ = cx.prove_state_path(path)
+        block_env, _ = bx.prove_header(block.header)
+        final_env, final_pis = fx.prove(block_env, contract_env, values_env)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del os.environ["MP2_TRACE"]
+    _read_counts("extraction state path + header + final_simple", launches)
+
+    proved = [m["member"] for m in members]
+    if proved != FINAL_EXTRACTION_PROOFS:
+        _fail(f"final extraction: proved {proved}, not {FINAL_EXTRACTION_PROOFS}")
+    if not (cx.verify(contract_env) and bx.verify(block_env) and fx.verify(final_env)):
+        _fail("final extraction: cx.verify, bx.verify or fx.verify rejected a proof")
+    shas = []
+    for name, env in (("account_leaf", contract_env), ("header", block_env)):
+        g = golden["proofs"][name]
+        sha = proof_sha256(proof_to_dict(env.proof))
+        shas.append(sha)
+        if env.public_inputs != g["public_inputs"] or sha != g["proof_sha256"]:
+            _fail(f"final extraction: the {name} envelope differs from the JAX package's ({sha})")
+    dm = Point.from_fields(values_pis[19:30]) + XM.contract_metadata_digest(EXTRACTION_CONTRACT)
+    md_hash = D.block_metadata_hash(Point.from_fields(final_pis[XF.F_DM]),
+                                    golden["host"]["table"]["block_id"])
+    if (final_pis[:XF.NUM_FINAL_PIS] != host_pis
+            or final_env.public_inputs != final_pis + list(fx.fw.set_digest)
+            or final_pis[XF.F_BN] != block.number or final_pis[XF.F_N] != len(block.entries)
+            or final_pis[XF.F_DV] != values_pis[8:19] or final_pis[XF.F_DM] != dm.to_fields()):
+        _fail("final extraction: the final PIs are not the host models' (BH, PH, BN = 101, "
+              "DV = the trie root's, DM = the trie root's + the contract's, N = 3) and the "
+              "set digest")
+    if list(md_hash) != golden["host"]["metadata_hash"]:
+        _fail("final extraction: the metadata hash differs from the JAX package's")
+    print(f"extraction state path + header + final_simple: {len(proved)} member proofs "
+          f"({', '.join(proved)}), each wrapped, in {wall:.3f} s; cx, bx and fx verified; the "
+          f"account_leaf and header envelopes equal to the JAX package's "
+          f"({', '.join(s[:12] for s in shas)}); final PIs = the host models' and the JAX "
+          f"package's (block {final_pis[XF.F_BN]}, N {final_pis[XF.F_N]}), DV = the trie "
+          f"root's, DM = the trie root's + the contract's; metadata hash {md_hash[0]:#x}... "
+          f"equal to the JAX package's")
+    _print_members("extraction state path + header + final_simple", members, log, wall)
+    return wall, shapes.keys
+
+
+def _shape_bound(entry, spec):
+    """(least ms, what bounds it) of one recorded entry call, counted as the
+    kernel phases count them: K2c's transform and entries by `_k2c_work`
+    and `_k2c_entry_work`; K1's leaf hash as one sponge of ceil(C / 8)
+    permutations per leaf of C > 4 values (hash_or_noop: none up to 4), the
+    LDE read once and the digests written once; its levels as one
+    permutation per node above the leaves down to the cap, the leaves read
+    once and the nodes written once."""
+    if entry == "ntt_four_step_t":
+        (rows, n), inverse = spec
+        return _bound(*_k2c_work(rows, n, inverse))
+    if entry == "lde_t":
+        (rows, n_in), rate, _ = spec
+        return _bound(*_k2c_entry_work(rows, (n_in << rate).bit_length() - 1, "lde", rate))
+    if entry == "coset_intt_t":
+        (rows, n), _ = spec
+        return _bound(*_k2c_entry_work(rows, n.bit_length() - 1, "coset_intt"))
+    if entry == "hash_leaves":
+        ((batch, cols, m),) = spec
+        perms = batch * m * (-(-cols // 8) if cols > 4 else 0)
+        return _bound(8 * (batch * cols * m + 4 * batch * m), perms * P2_ISSUES)
+    (batch, m, _), cap = spec  # merkle_levels
+    nodes = batch * (m - (1 << cap))
+    return _bound(8 * 4 * (batch * m + nodes), nodes * P2_ISSUES)
 
 
 def phase_extraction_shapes(card, keys):
     """Every K2c and K1 Merkle entry shape that the extraction path fed,
-    held against its plain twin, bit for bit."""
+    held against its plain twin, bit for bit; each timed (the plain twin
+    once) beside its bound.  Returns the max_abs_err and the times by
+    kernel."""
     rng = np.random.default_rng(5)
     dev = torch.device("cuda")
-    err = 0
+    err, times = 0, {}
     for key in sorted(keys, key=repr):
         entry, *spec = key
         kernel, plain = SHAPE_ENTRIES[entry]
@@ -1684,12 +1912,16 @@ def phase_extraction_shapes(card, keys):
                 _fail(f"{entry} disagrees with its plain twin at {spec}")
         del got, want
         k_ms = _time_ms(lambda: kernel(*args), 5)
+        bound_ms, bound_by = _shape_bound(entry, spec)
+        kernel_name = "K1" if entry in ("hash_leaves", "merkle_levels") else "K2c"
+        times.setdefault(kernel_name, {})[f"{entry} {spec}"] = {
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"extraction shape {entry} {spec}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"identical; {card}")
+              f"bound {bound_ms:.4f} ms ({bound_by}), identical; {card}")
     print(f"extraction path: {len(keys)} K2c and K1 Merkle entry shapes held against their "
           f"plain twins; max_abs_err {err} (tolerance 0: bit-exact)")
     torch.cuda.empty_cache()
-    return err
+    return err, times
 
 
 # the other processes of this script and the card's two lanes
@@ -1700,17 +1932,18 @@ HELPERS = (VDB_LIGHT_FLAG, VDB_PRODUCTION_FLAG, EXTRACTION_FLAG)
 LANE_MARK = "@card"  # a helper's request for a lane and its release, one line each
 # each lane's steps in the order they run.  A heavy step takes ~38-41 GiB
 # of the card at its peak, so two never run together; the other steps take
-# 18-25 GiB, and the trie (41 GiB) waits for the production vdb chain (25)
-# to end, the one pair that would leave the card under ~3 GiB free
-HEAVY_ORDER = ("vdb row update + block tree", "extraction storage trie")
+# 18-25 GiB, and block 101's extraction (41 GiB) waits for the production
+# vdb chain (25) to end, the one pair that would leave the card under ~3 GiB
+# free
+HEAVY_ORDER = ("vdb row update + block tree", "extraction block 101")
 OTHER_ORDER = ("recursion production", "vdb production chain", "recursion light",
                "vdb light golden chain")
-AFTER = {"extraction storage trie": "vdb production chain"}
+AFTER = {"extraction block 101": "vdb production chain"}
 
 
 class _Card:
     """The card's two lanes, granted by the main process: the heavy lane
-    ("H": the row update with the block path, then the storage trie) and
+    ("H": the row update with the block path, then block 101's extraction) and
     the other lane ("O": every other step that proves), each in its fixed
     order, a step also after the one AFTER names.  One step of each lane
     may run at once.  The main process holds both lanes through the kernel
@@ -1852,6 +2085,15 @@ def _join(helpers, card):
     return [h.result() for h in failed + helpers]
 
 
+def _settled():
+    """After a process's set-up: its objects (the circuits' millions) move
+    to the collector's permanent generation, so the first collections while
+    it proves do not walk them all (25-45 s in the first proof after the
+    extraction sets), and the set-up's cached blocks go back to the card."""
+    gc.freeze()
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def _lane(lane, step):
     """In a helper: wait until the main process grants `lane` to `step`;
@@ -1859,6 +2101,9 @@ def _lane(lane, step):
     print(f"{LANE_MARK} want {lane} {step}", flush=True)
     if sys.stdin.readline() != "go\n":
         _fail(f"the main process did not grant the card to {step}")
+    print(f"{step}: granted; this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"GiB of the card ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)",
+          flush=True)
     try:
         yield
     finally:
@@ -1873,6 +2118,7 @@ def vdb_light_process(card, dev, golden):
     the golden chain.  The last line is the paths' launch counts."""
     launches = {}
     vdb = _phase("vdb light set-up", phase_vdb_light_setup, card, dev, golden)
+    _settled()
     with _lane("H", HEAVY_ORDER[0]):
         counts, rows_db, rows_root = _phase("vdb row update", phase_vdb_update, card, vdb,
                                             launches)
@@ -1886,29 +2132,39 @@ def vdb_light_process(card, dev, golden):
 def vdb_production_process(card, dev, golden):
     """The production vdb sets and their chain (VDB_PRODUCTION_FLAG)."""
     vdb = _phase("vdb production set-up", phase_vdb_production_setup, card, dev, golden)
+    _settled()
     with _lane("O", OTHER_ORDER[1]):
         _phase("vdb production chain", phase_vdb_production_chain, card, vdb, golden)
     print(json.dumps({"launches": {}}))
 
 
-def extraction_process(card, dev, rgolden, xgolden):
-    """The production recursion and the extraction phases (EXTRACTION_FLAG):
-    the framework, its proofs on the other lane, the extraction set-up,
-    then the storage trie and its kernel shapes on the heavy lane after the
-    block path.  The last line is the paths' launch counts and the shapes'
-    max_abs_err."""
+def extraction_process(card, dev, xgolden, fgolden):
+    """The extraction phases (EXTRACTION_FLAG): the values, contract, block
+    and final sets set up beside the kernel phases, then on the heavy lane
+    after the block path block 101's storage trie, its state path, header
+    and final_simple, and the kernel shapes they fed.  The last line is the
+    paths' launch counts, the shapes' max_abs_err and their times."""
     launches = {}
-    fw = _phase("recursion production set-up", _framework, "production (CircuitConfig)",
-                CircuitConfig(), dev, rgolden)
-    with _lane("O", OTHER_ORDER[0]):
-        _phase("recursion production", phase_recursion_production, card, fw, launches)
-    del fw
-    vx = _phase("extraction set-up", phase_extraction_setup, card, dev, xgolden)
+    vx = _phase("extraction values set-up", phase_extraction_setup, card, dev, xgolden)
+    cx, bx, fx = _phase("extraction contract, block and final set-up",
+                        phase_final_extraction_setup, card, dev, vx, fgolden)
+    _settled()
+    block = _extraction_chain()[-1]
     with _lane("H", HEAVY_ORDER[1]):
-        _, keys = _phase("extraction storage trie", phase_extraction, card, vx, xgolden,
-                         launches)
-        err = _phase("extraction kernel shapes", phase_extraction_shapes, card, keys)
-    print(json.dumps({"launches": launches, "max_abs_err": err}))
+        values_env, values_pis, trie_wall, keys = _phase(
+            "extraction storage trie", phase_extraction, card, vx, block, xgolden, launches)
+        final_wall, final_keys = _phase(
+            "extraction state path + header + final_simple", phase_final_extraction, card, cx,
+            bx, fx, block, values_env, values_pis, fgolden, launches)
+        n_proofs = len(EXTRACTION_PROOFS) + len(FINAL_EXTRACTION_PROOFS)
+        wall = trie_wall + final_wall
+        print(f"extraction_block_proofs_per_s {n_proofs / wall:.4f} ({n_proofs} member proofs "
+              f"of block 101's extraction / {wall:.3f} s wall: the storage trie "
+              f"{trie_wall:.3f} s, the state path, header and final_simple {final_wall:.3f} s; "
+              f"wraps included); {card}")
+        err, times = _phase("extraction kernel shapes", phase_extraction_shapes, card,
+                            keys | final_keys)
+    print(json.dumps({"launches": launches, "max_abs_err": err, "shapes": times}))
 
 
 def main():
@@ -1921,6 +2177,8 @@ def main():
         vgolden = json.load(f)
     with open(os.path.join(TESTDATA, "extraction_golden.json")) as f:
         xgolden = json.load(f)
+    with open(os.path.join(TESTDATA, "final_extraction_golden.json")) as f:
+        fgolden = json.load(f)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1933,7 +2191,7 @@ def main():
         vdb_production_process(card, dev, vgolden)
         return 0
     if sys.argv[1:] == [EXTRACTION_FLAG]:
-        extraction_process(card, dev, rgolden["production"], xgolden)
+        extraction_process(card, dev, xgolden, fgolden)
         return 0
     t_start = time.perf_counter()
     launches = {}
@@ -1947,8 +2205,9 @@ def main():
     lanes = _Card(t_start, "kernel phases and tree-node timing")
     helpers = [_Helper(flag, lanes) for flag in HELPERS]
     memory = _FreeMemory(t_start)
+    toolchain = ThreadPoolExecutor(1)
     try:
-        sass = _phase("toolchain", phase_toolchain, card, builds)
+        sass_lines = toolchain.submit(_phase, "toolchain", phase_toolchain, card, builds)
         p1 = _phase("P1 probe", phase_probe, card)
         k1_err, k1_times = _phase("K1", phase_k1, card)
         k1m_err, k1m_times = _phase("K1 Merkle entries", phase_k1_merkle, card)
@@ -1961,10 +2220,22 @@ def main():
                 "tree_node_proofs_per_s_production": production})
         del light, production
         torch.cuda.empty_cache()
+        lines, sass = sass_lines.result()
+        print("\n".join(lines))
+        toolchain.shutdown()
         lanes.release("H", "kernel phases and tree-node timing")
         lanes.release("O", "kernel phases and tree-node timing")
         fw = _phase("recursion light set-up", _framework, "light (test_config)",
                     test_config(), dev, rgolden["light"])
+        fw_production = _phase("recursion production set-up", _framework,
+                               "production (CircuitConfig)", CircuitConfig(), dev,
+                               rgolden["production"])
+        _settled()
+        with lanes.lane("O", OTHER_ORDER[0]):
+            _phase("recursion production", phase_recursion_production, card, fw_production,
+                   launches)
+            del fw_production
+            torch.cuda.empty_cache()
         with lanes.lane("O", OTHER_ORDER[2]):
             _phase("recursion light", phase_recursion_light, card, fw, rgolden["light"],
                    launches)
@@ -2006,7 +2277,8 @@ def main():
          "launches_by_path": by_path("K1"),
          "launches_by_entry_and_path": by_path("K1 entries"),
          "by_lanes": {str(k): v for k, v in k1_times.items()},
-         "merkle_entries": k1m_times, "sass": sass["K1"]},
+         "merkle_entries": k1m_times, "extraction_shapes": x["shapes"].get("K1", {}),
+         "sass": sass["K1"]},
         {"name": "ntt_rows", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/ntt.cu",
          "replaces": "mp2_tpu/ops/ntt_pallas.py:237",
@@ -2019,7 +2291,7 @@ def main():
          "launches": counts["K2c"], "max_abs_err": max(k2c_err, x["max_abs_err"]),
          **k2c_times[k2c_shape], "library_ms": None, "shape": k2c_shape,
          "launches_by_path": by_path("K2c"), "by_shape": k2c_times,
-         "sass": sass["K2c"]},
+         "extraction_shapes": x["shapes"].get("K2c", {}), "sass": sass["K2c"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

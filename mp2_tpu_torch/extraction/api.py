@@ -10,10 +10,7 @@ these values; until those circuits land, this model IS the pipeline executed
 by the end-to-end tests (the reference uses the same layering for its
 unit tests via unconstrained dummy proofs, SURVEY.md §4 tier 2).
 
-A jax-free copy of the storage part of `mp2_tpu/extraction/api.py`
-(`ValuesExtractionOutput`, `SlotEntry`, `extract_storage_slots`): only the
-imports change.  The block, contract, length and final-extraction models
-wait for their circuits (ROADMAP Queue 1 item 3b).
+A jax-free copy of `mp2_tpu/extraction/api.py`: only the imports change.
 """
 
 from __future__ import annotations
@@ -24,10 +21,11 @@ from typing import Dict, Optional, Sequence
 from mp2_tpu_torch.extraction import values as V
 from mp2_tpu_torch.extraction.columns import ColumnInfo, filter_table_column_identifiers
 from mp2_tpu_torch.field.ecgfp5 import NEUTRAL, Point
+from mp2_tpu_torch.hash import poseidon2_host as p2h
 from mp2_tpu_torch.utils import rlp
 from mp2_tpu_torch.utils.keccak import keccak256
 from mp2_tpu_torch.utils.trie import MPT, verify_proof
-from mp2_tpu_torch.utils.u256 import left_pad32
+from mp2_tpu_torch.utils.u256 import left_pad32, pack_bytes_be
 
 
 @dataclass(frozen=True)
@@ -158,3 +156,164 @@ def extract_storage_slots(
         )
 
     return fold(root_body)
+
+
+# ---------------------------------------------------------------------------
+# block extraction
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class BlockExtractionOutput:
+    """block_extraction PIs: block hash, prev hash, state root, number."""
+
+    block_hash: bytes
+    parent_hash: bytes
+    state_root: bytes
+    block_number: int
+
+
+def extract_block(header_rlp: bytes) -> BlockExtractionOutput:
+    items = rlp.decode(header_rlp)
+    assert isinstance(items, list) and len(items) >= 9
+    return BlockExtractionOutput(
+        block_hash=keccak256(header_rlp),
+        parent_hash=items[0],
+        state_root=items[3],
+        block_number=int.from_bytes(items[8], "big"),
+    )
+
+
+# ---------------------------------------------------------------------------
+# contract extraction
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ContractExtractionOutput:
+    """contract_extraction PIs: state-trie node hash, storage root, DM."""
+
+    node_hash: bytes
+    storage_root: bytes
+    metadata_digest: Point
+
+
+def extract_contract(
+    state_trie: MPT, contract_address: bytes, account_rlp_fields=None
+) -> ContractExtractionOutput:
+    proof = state_trie.get_proof(contract_address)
+    account_rlp = verify_proof(state_trie.root_hash(), contract_address, proof)
+    account = rlp.decode(account_rlp)  # [nonce, balance, storage_root, code_hash]
+    storage_root = account[2]
+    # DM = D(pack_u32_be(contract_address))  (contract_extraction/leaf.rs:98)
+    dm = p2h.map_to_curve_point(pack_bytes_be(contract_address))
+    return ContractExtractionOutput(
+        node_hash=state_trie.root_hash(),
+        storage_root=storage_root,
+        metadata_digest=dm,
+    )
+
+
+# ---------------------------------------------------------------------------
+# length extraction
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class LengthExtractionOutput:
+    """length_extraction PIs: the length-slot value + storage-trie binding
+    (role of mp2-v1/src/length_extraction: proves a 'length slot' so
+    final extraction can check completeness n == length)."""
+
+    node_hash: bytes  # storage trie root
+    slot: int
+    length: int
+    metadata_digest: Point
+
+
+def extract_length(
+    trie: MPT, slot: int, location: bytes, variable_slot: int
+) -> LengthExtractionOutput:
+    proof = trie.get_proof(location)
+    value_rlp = verify_proof(trie.root_hash(), location, proof)
+    length = int.from_bytes(rlp.decode(value_rlp), "big")
+    # DM = D(length_slot || variable_slot): commits to the SLOTS only, so the
+    # digest is stable across blocks (length_extraction/api.rs:27-31; the
+    # circuit must not commit to the changing length value)
+    dm = p2h.map_to_curve_point([slot, variable_slot])
+    return LengthExtractionOutput(
+        node_hash=trie.root_hash(), slot=slot, length=length, metadata_digest=dm
+    )
+
+
+# ---------------------------------------------------------------------------
+# final extraction
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FinalExtractionOutput:
+    """final_extraction PIs: block hash binding + digests
+    (final_extraction/base_circuit.rs:35-70)."""
+
+    block_hash: bytes
+    prev_block_hash: bytes
+    block_number: int
+    values_digest: Point
+    metadata_digest: Point
+    is_merge: bool = False
+
+
+def final_extraction(
+    block_out: BlockExtractionOutput,
+    contract_out: ContractExtractionOutput,
+    values_out: ValuesExtractionOutput,
+    storage_trie_root: bytes,
+    state_trie_root: bytes,
+) -> FinalExtractionOutput:
+    """The reduce-phase join (Simple variant): storage root of the values
+    proof must equal the contract's storage root; the state root must be the
+    block's."""
+    assert values_out.node_hash == contract_out.storage_root == storage_trie_root, (
+        "values proof root != contract storage root"
+    )
+    assert state_trie_root == block_out.state_root, "state root not in block"
+    # final metadata digest = contract DM + values DM (merged commitment)
+    dm = values_out.metadata_digest + contract_out.metadata_digest
+    return FinalExtractionOutput(
+        block_hash=block_out.block_hash,
+        prev_block_hash=block_out.parent_hash,
+        block_number=block_out.block_number,
+        values_digest=values_out.values_digest,
+        metadata_digest=dm,
+    )
+
+
+def final_extraction_lengthed(
+    block_out: BlockExtractionOutput,
+    contract_out: ContractExtractionOutput,
+    values_out: ValuesExtractionOutput,
+    length_out: LengthExtractionOutput,
+    storage_trie_root: bytes,
+    state_trie_root: bytes,
+) -> FinalExtractionOutput:
+    """Lengthed variant (final_extraction/api.rs): additionally checks
+    extraction COMPLETENESS — the number of extracted leaves must equal the
+    on-chain length-slot value."""
+    assert length_out.node_hash == storage_trie_root, (
+        "length proof is not over the same storage trie"
+    )
+    assert values_out.n_leaves == length_out.length, (
+        f"incomplete extraction: {values_out.n_leaves} leaves != "
+        f"length slot {length_out.length}"
+    )
+    out = final_extraction(
+        block_out, contract_out, values_out, storage_trie_root, state_trie_root
+    )
+    return FinalExtractionOutput(
+        block_hash=out.block_hash,
+        prev_block_hash=out.prev_block_hash,
+        block_number=out.block_number,
+        values_digest=out.values_digest,
+        metadata_digest=out.metadata_digest + length_out.metadata_digest,
+    )

@@ -6,8 +6,8 @@ values digest DV (accumulated over the MPT towards the root) and a metadata
 digest DM committing to the table schema.
 
 A jax-free copy of `mp2_tpu/extraction/values.py` without the
-mapping-of-mappings leaf digests, which wait for the mapping-of-mappings
-leaf circuit (ROADMAP Queue 1 item 3b): only the imports change.
+mapping-of-mappings leaf's values digest, which waits for that leaf's
+circuit (ROADMAP Queue 1 item 3b): only the imports change.
 """
 
 from __future__ import annotations
@@ -173,3 +173,18 @@ def compute_leaf_mapping_values_digest(
         row_unique_data_for_mapping_leaf(mapping_key), num_actual_columns
     )
     return vd.scalar_mul(row_id)
+
+
+def compute_leaf_mapping_of_mappings_metadata_digest(
+    table_info: Sequence[ColumnInfo], slot: int, outer_key_id: int, inner_key_id: int
+) -> Point:
+    md = metadata_digest(table_info)
+    for prefix_bytes, key_id in (
+        (OUTER_KEY_ID_PREFIX, outer_key_id),
+        (INNER_KEY_ID_PREFIX, inner_key_id),
+    ):
+        prefix = int.from_bytes(prefix_bytes, "big")
+        col_md = p2h.hash_no_pad([prefix, slot])
+        md = md + p2h.map_to_curve_point(list(col_md) + [key_id])
+    return md
+

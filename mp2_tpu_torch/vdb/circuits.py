@@ -536,8 +536,7 @@ class VerifiableDbCircuits:
         if extraction is not None:
             raise NotImplementedError(
                 "the extraction-bound block members (block_leaf_bound, "
-                "block_parent_bound) wait for the final-extraction circuits "
-                "(ROADMAP Queue 1 item 3b)")
+                "block_parent_bound) are not ported yet (ROADMAP Queue 1 item 3b)")
         self.config = config
         self.cells = RecursionFramework(config, NUM_USER_PIS, set_height=2,
                                         device=device)

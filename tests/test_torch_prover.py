@@ -222,7 +222,8 @@ def test_port_imports_no_jax():
         "        'circuit.gadgets.bytes', 'extraction.storage_key',\n"
         "        'extraction.columns', 'extraction.values',\n"
         "        'extraction.column_gadget', 'extraction.mpt_circuits',\n"
-        "        'extraction.api']\n"
+        "        'extraction.api', 'extraction.circuits', 'extraction.final_circuits',\n"
+        "        'extraction.metadata']\n"
         "missing = [m for m in want if 'mp2_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
