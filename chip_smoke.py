@@ -58,54 +58,69 @@ drives these paths:
   model, printed as `vdb_block_ivc_proofs_per_s`; and the sets at
   `CircuitConfig()`, with the chain to `rows_leaf` proved and verified;
 
-  a block's extraction: the values-extraction set of the pipeline's
-  mapping table (`extraction/mpt_circuits.ValuesExtractionCircuits` with
-  `leaf_mapping`, `extension`, `branch1`, `branch2` and `branch3` members of
-  2^14 to 2^16 rows, keccak, RLP and the MPT key chain in-circuit), the
-  contract set (`extraction/final_circuits.ContractExtractionCircuits`:
-  `account_leaf`, `branch`, `extension`), the block framework over block
-  101's header offsets and the final set (`final_simple`, which verifies a
-  block, a contract and a values proof) at `test_config()`, their set,
-  member and circuit digests, rows and wrap chains checked against
-  `mp2_tpu_torch/testdata/extraction_golden.json` and
-  `mp2_tpu_torch/testdata/final_extraction_golden.json`, which the JAX
-  package wrote; then block 101's extraction as the pipeline proves it:
-  its storage trie from its leaves to the storage root through
-  `prove_trie` (3 `leaf_mapping` and 2 `branch2` proofs), the root verified
-  and its public inputs held against the host model
-  `extract_storage_slots`, the 0x11 leaf's envelope against the JAX
-  package's proof, printed as `extraction_storage_proofs_per_s`; then the
-  contract's state path (one `account_leaf`), the header and
-  `final_simple` over the three, each verified, the account leaf's and
-  the header's envelopes against the JAX package's proofs, the final
+  a block through the pipeline: `models/circuit_pipeline.CircuitTableIndexer`
+  for the pipeline's mapping table (its chain from
+  `models/pipeline.make_chain`, as mp2_tpu/models/pipeline.py:139-182
+  builds it), its sets built by `_ensure_built` on block 101's header at
+  `test_config()`: the values-extraction set
+  (`extraction/mpt_circuits.ValuesExtractionCircuits` with `leaf_mapping`,
+  `extension`, `branch1`, `branch2` and `branch3` members of 2^14 to 2^16
+  rows, keccak, RLP and the MPT key chain in-circuit), the contract set
+  (`extraction/final_circuits.ContractExtractionCircuits`: `account_leaf`,
+  `branch`, `extension`), the block framework over block 101's header
+  offsets, the final set (`final_simple`, which verifies a block, a
+  contract and a values proof) and the verifiable DB's four sets over it
+  (`VerifiableDbCircuits(extraction=fx)`, whose block set adds
+  `block_leaf_bound` and `block_parent_bound`), their set, member and
+  circuit digests, rows and wrap chains checked against
+  `mp2_tpu_torch/testdata/{extraction,final_extraction,pipeline}_golden.json`
+  and the cells and rows sets against `vdb_golden.json`, which the JAX
+  package wrote; then block 101 applied as the indexer's first block by one
+  call of `apply_block`: its storage trie from its leaves to the storage
+  root through `prove_trie` (3 `leaf_mapping` and 2 `branch2` proofs), the
+  contract's state path (one `account_leaf`), the header and `final_simple`
+  over the three, its rows tree (three one-cell trees and `rows_leaf`,
+  `rows_partial`, `rows_partial`), the block-tree leaf `block_leaf_bound`,
+  which verifies `final_simple` in-circuit and pins its values digest to the
+  rows digest and its block number to the leaf's, and `ivc_first`.  The trie
+  root is verified and its public inputs held against the host model
+  `extract_storage_slots`, the 0x11 leaf's, the account leaf's and the
+  header's envelopes against the JAX package's proofs, `final_simple`'s
   public inputs against the host models (`extract_block`,
   `extract_contract`, `final_extraction`) and the JAX package's, their
-  metadata hash against the JAX package's, printed with the trie as
-  `extraction_block_proofs_per_s`; then every K2c and K1 Merkle entry
-  shape that this path fed, held against its plain twin and timed beside
-  its bound.
+  metadata hash against the JAX package's; the rows root,
+  `block_leaf_bound` and `ivc_first` are verified and their public inputs
+  held against the host models (`rows_pi_values`, `block_pi_values`,
+  `ivc_pi_values`) and the JAX package's, the rows digest against
+  `final_simple`'s values digest; printed as
+  `extraction_storage_proofs_per_s` (the trie), `extraction_block_proofs_per_s`
+  (the extraction) and `pipeline_block_proofs_per_s` (the 16 proofs of
+  `apply_block`); and every K2c and K1 Merkle entry shape that this path
+  feeds, held against its plain twin and timed beside its bound by the main
+  process as the pipeline's process announces it.
 
-Four processes of this script share the card.  The main one builds the
-kernels, then starts the other three, which set up their circuit sets on
-the host (with the fixed commitments' short launches) while the main one
-runs the kernel phases, the tree-node batches and their timing, holding the
-whole card.  After that every step that proves takes one of two lanes of
-the card, which the main process grants: the heavy lane runs the row update
-with the block path (`--vdb-light`), then block 101's extraction with its
-kernel shapes (`--extraction`), one at a time, since each takes ~40 GiB of
-the card at its peak; the other lane runs the remaining steps one at a
-time: the production recursion (main process), the production vdb chain
+Four processes of this script share the card.  The main one starts the
+other three first, which set up their circuit sets on the host (their
+first kernel launch waits until the main one has built the kernels) while
+the main one builds the kernels and runs the kernel phases, the tree-node
+batches and their timing, holding the whole card.  After that every step
+that proves takes one of two lanes of the card, which the main process
+grants: the heavy lane runs the row update (`--vdb-light`), then block 101
+through the pipeline (`--extraction`); the block path (`--vdb-light`) has
+a lane of its own; the other lane runs the remaining steps one at a time:
+the production recursion (main process), the production vdb chain
 (`--vdb-production`), the light recursion (main process) and the light vdb
-golden chain (`--vdb-light`); the extraction also waits for the production
-vdb chain to end, so that the card keeps a few GiB free.  The main process
-sets up both recursion frameworks after the timing, the light one first.
-So no other step that proves runs beside the kernel phases and the
-tree-node timing, and each step of the heavy lane runs beside at most one
-step of the other lane.  The script prints each step's times on its clock
-(asked for its lane, granted it, gave it back), the least free card memory
-it saw, the other processes' output, and fails with them.  Each phase
-prints its wall.  A plain twin that takes over a second is timed with one
-call.
+golden chain (`--vdb-light`).  The main process sets up both recursion
+frameworks after the timing, the light one first, and checks the
+pipeline's kernel shapes while it proves.  So no other step that proves
+runs beside the kernel phases and the tree-node timing.  `prove_batch`'s
+pieces are bounded so that a 2^16-row proof adds ~9 GiB to its process's
+resident sets, which lets the steps share the card.  The script prints
+each step's times on its clock (asked for its lane, granted it, gave it
+back), each prove_batch's stages' peak card memory, the least free card
+memory it saw, the other processes' output, and fails with them.  Each
+phase prints its wall.  A plain twin that takes over a second is timed
+with one call.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after, and fails if a kernel of the path was not launched.  Any
@@ -119,6 +134,7 @@ import contextlib
 import gc
 import json
 import os
+import queue
 import subprocess
 import sys
 import threading
@@ -137,17 +153,15 @@ from mp2_tpu_torch.extraction import api as XA
 from mp2_tpu_torch.extraction import final_circuits as XF
 from mp2_tpu_torch.extraction import metadata as XM
 from mp2_tpu_torch.extraction import storage_key as SK
-from mp2_tpu_torch.extraction import values as XV
 from mp2_tpu_torch.extraction.circuits import fixture_header_offsets
-from mp2_tpu_torch.extraction.columns import simple_column
-from mp2_tpu_torch.extraction.final_circuits import (BlockExtractionFramework,
-                                                     ContractExtractionCircuits,
-                                                     FinalExtractionCircuits)
-from mp2_tpu_torch.extraction.mpt_circuits import ValuesExtractionCircuits, mpt_pi_values
+from mp2_tpu_torch.extraction.mpt_circuits import mpt_pi_values
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.field.ecgfp5 import Point
 from mp2_tpu_torch.hash import poseidon2 as p2
 from mp2_tpu_torch.hash import poseidon2_host as p2h
+from mp2_tpu_torch.models import circuit_pipeline as CP
+from mp2_tpu_torch.models.circuit_pipeline import CircuitTableIndexer
+from mp2_tpu_torch.models.pipeline import MappingTableConfig, make_chain
 from mp2_tpu_torch.ops import _nvcc
 from mp2_tpu_torch.ops import ntt_cuda as N
 from mp2_tpu_torch.ops import ntt_t_cuda as T
@@ -165,9 +179,8 @@ from mp2_tpu_torch.recursion import runtime
 from mp2_tpu_torch.recursion.runtime import RecursionFramework
 from mp2_tpu_torch.recursion.tp2_backend import _build_tree_node, tree_node_batch
 from mp2_tpu_torch.ryhope.updatetree import UpdateTree
-from mp2_tpu_torch.utils import rlp, trace
+from mp2_tpu_torch.utils import trace
 from mp2_tpu_torch.utils.keccak import keccak256
-from mp2_tpu_torch.utils.trie import MPT
 from mp2_tpu_torch.utils.u256 import left_pad32, pack_bytes_be
 from mp2_tpu_torch.vdb import circuits as V
 from mp2_tpu_torch.vdb import digests as D
@@ -351,18 +364,26 @@ SHAPE_ENTRIES = {"ntt_four_step_t": (T.ntt_four_step_t, T.ntt_four_step_plain),
                  "merkle_levels": (K.merkle_levels, K.merkle_levels_plain)}
 
 
+SHAPE_MARK = "@shape"  # a helper's line announcing a shape its path fed
+
+
 class _ShapeLog:
     """Records the shapes of every K2c entry call that prover/ntt makes and
     every K1 Merkle entry call that prover/merkle makes (a measurement hook
     of this script only: it wraps the names those modules call, so the
-    wrappers and their launch counts are untouched)."""
+    wrappers and their launch counts are untouched).  Each new shape is
+    also printed on a SHAPE_MARK line, for the main process to check while
+    the path runs."""
 
     def __init__(self):
         self.keys = set()
 
     def _recorded(self, entry, fn):
         def call(*args):
-            self.keys.add(_shape_key(entry, args))
+            key = _shape_key(entry, args)
+            if key not in self.keys:
+                self.keys.add(key)
+                print(f"{SHAPE_MARK} {json.dumps(key)}", flush=True)
             return fn(*args)
 
         return call
@@ -1017,20 +1038,44 @@ def _framework(name, cfg, dev, golden):
 class _StageLog:
     """Counts every prove_batch of the recursion runtime, its batched paths
     and, through the serial `prove`, its serial ones: circuit n, B, wall,
-    K1, K2 and K2c launches (a measurement hook of this script only)."""
+    K1, K2 and K2c launches, and each stage's peak allocated and reserved
+    card memory of this process (a measurement hook of this script only)."""
 
     def __init__(self):
         self.stages = []
         self._orig = batch_mod.prove_batch
+        self._peak = 0
+
+    def peak_gib(self):
+        """The highest allocation of this process since the log opened."""
+        return max(self._peak, torch.cuda.max_memory_allocated()) / 2**30
 
     def __enter__(self):
+        torch.cuda.reset_peak_memory_stats()
+
         def counted(data, wits, pis):
             k = {name: _count(name) for name in PROVER_KERNELS}
+            self._peak = max(self._peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            peaks = {"resident": (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())}
+
+            def stage_done(stage):
+                # the allocator counts on the host as work is queued: no sync
+                seen = peaks.get(stage, (0, 0))  # a stage run once per chunk
+                peaks[stage] = (max(seen[0], torch.cuda.max_memory_allocated()),
+                                max(seen[1], torch.cuda.max_memory_reserved()))
+                self._peak = max(self._peak, peaks[stage][0])
+                torch.cuda.reset_peak_memory_stats()
+
+            batch_mod.STAGE_HOOKS.append(stage_done)
             t0 = time.perf_counter()
-            out = self._orig(data, wits, pis)
-            torch.cuda.synchronize()
+            try:
+                out = self._orig(data, wits, pis)
+                torch.cuda.synchronize()
+            finally:
+                batch_mod.STAGE_HOOKS.remove(stage_done)
             self.stages.append({"n": data.n, "B": len(pis),
-                                "s": time.perf_counter() - t0,
+                                "s": time.perf_counter() - t0, "peaks": peaks,
                                 **{name: _count(name) - k[name]
                                    for name in PROVER_KERNELS}})
             return out
@@ -1040,6 +1085,16 @@ class _StageLog:
 
     def __exit__(self, *exc):
         runtime.prove_batch = batch_mod.prove_batch = self._orig
+
+    def print(self):
+        """One line per prove_batch: n, B, wall, launches, then the
+        allocated (reserved) GiB of this process before it and at the peak
+        of each stage."""
+        for st in self.stages:
+            mem = ", ".join(f"{k} {a / 2**30:.2f} ({r / 2**30:.2f})"
+                            for k, (a, r) in st["peaks"].items())
+            print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
+                  f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches; GiB {mem}")
 
 
 def _two_leaves_one_aggregation(fw, values):
@@ -1108,10 +1163,8 @@ def phase_recursion_light(card, fw, golden, launches):
           f"witness generation {wit_s:.3f} s ({wit_s / wall:.3f}), other host work "
           f"(child witnesses, hashing, envelopes) {wall - prove_s - wit_s:.3f} s; "
           f"host share outside prove_batch {(wall - prove_s) / wall:.3f}; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    for st in log.stages:
-        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
-              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
+          f"memory {log.peak_gib():.3f} GiB")
+    log.print()
     return counts, n_proofs / wall
 
 
@@ -1130,10 +1183,8 @@ def phase_recursion_production(card, fw, launches):
         _fail("production: fw.verify rejected the aggregation root")
     print(f"production: 2 leaves + 1 aggregation, each wrapped, in {wall:.3f} s "
           f"(first use of each shape); root verified; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {card}")
-    for st in log.stages:
-        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
-              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
+          f"{log.peak_gib():.3f} GiB; {card}")
+    log.print()
 
 
 VDB_ROWS = 4  # rows inserted by one block; cut to keep the script in its time limit
@@ -1149,10 +1200,10 @@ BLOCK_INDEX_ID = 14  # column identifier of the block number
 METADATA_INPUTS = (1, 2, 3)  # the IVC metadata hash is H(1, 2, 3)
 
 
-def _vdb_sets(name, vdb, golden):
-    """Check the four sets of `vdb` against the golden record of the JAX
-    package."""
-    for set_name in VDB_SETS:
+def _vdb_sets(name, vdb, golden, sets=VDB_SETS):
+    """Check the sets of `vdb` named `sets` against the golden record of the
+    JAX package."""
+    for set_name in sets:
         fw, g = getattr(vdb, set_name), golden[set_name]
         chains = {m: [fw.members[m].data.n] + [wc.data.n for wc in
                                                fw._wrap_chain_for(fw.members[m].data)]
@@ -1165,9 +1216,9 @@ def _vdb_sets(name, vdb, golden):
         for m in fw.member_order:
             if list(fw.members[m].digest) != g["member_digests"][m]:
                 _fail(f"{name} {set_name}: member {m}'s digest differs from the JAX package's")
-    digests = ", ".join(f"{getattr(vdb, s).set_digest[0]:#x}..." for s in VDB_SETS)
-    print(f"{name}: cells, rows, block and IVC set digests ({digests}), standard n, "
-          f"member digests and wrap chains equal to the JAX package's")
+    digests = ", ".join(f"{s} {getattr(vdb, s).set_digest[0]:#x}..." for s in sets)
+    print(f"{name}: set digests ({digests}), standard n, member digests and wrap chains "
+          f"equal to the JAX package's")
 
 
 def _row_chain(vdb, cells_values, secondary, rud, key):
@@ -1391,13 +1442,11 @@ def phase_vdb_update(card, vdb, launches):
     print(f"vdb row update time: prove_batch {prove_s:.3f} s ({prove_s / wall:.3f}), "
           f"witness generation {wit_s:.3f} s ({wit_s / wall:.3f}), other host work "
           f"{wall - prove_s - wit_s:.3f} s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+          f"{log.peak_gib():.3f} GiB")
     for name, st in (("cells", cells_stats), ("rows", rows_stats)):
         print(f"vdb {name} schedule: levels {st.levels}, batches {st.batches}, "
               f"items {st.items}, max batch {st.max_batch}, per level {st.per_level_sizes}")
-    for st in log.stages:
-        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
-              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
+    log.print()
     return counts, db, root
 
 
@@ -1491,10 +1540,8 @@ def phase_vdb_block_ivc(card, vdb, rows_db, rows_env, launches):
         print(f"  {line}")
     print(f"vdb block tree + IVC time: prove_batch {prove_s:.3f} s "
           f"({prove_s / wall:.3f}); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    for st in log.stages:
-        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
-              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
+          f"{log.peak_gib():.3f} GiB")
+    log.print()
     return counts
 
 
@@ -1530,56 +1577,35 @@ def phase_vdb_production_chain(card, vdb, golden):
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {card}")
 
 
-# the mapping table of tests/test_circuit_pipeline.py:29-37 (chain 1, slot 4,
-# blocks 100 and 101 as mp2_tpu/models/pipeline.py:139-182 builds them), but
-# not its contract: that test's ADDR (:19) is bytes(range(10, 30)), while
-# this script, tests/test_extraction_circuits.py:23,
-# tests/test_final_extraction.py:44 and both golden files
-# (testdata/extraction_golden.json, testdata/final_extraction_golden.json)
+# the mapping table and chain of tests/test_circuit_pipeline.py:29-37 (chain 1,
+# slot 4, blocks 100 and 101 as mp2_tpu/models/pipeline.py:139-182 builds them,
+# here through the port's models.pipeline.make_chain), but not its contract:
+# that test's ADDR (:19) is bytes(range(10, 30)), while this script,
+# tests/test_extraction_circuits.py:23, tests/test_final_extraction.py:44 and
+# the golden files (testdata/{extraction,final_extraction,pipeline}_golden.json)
 # use bytes(range(20)); the golden files depend on it
-EXTRACTION_CONTRACT = bytes(range(20))
-EXTRACTION_CHAIN_ID = 1
-EXTRACTION_SLOT = 4
-EXTRACTION_BLOCKS = ({b"\x11": 100, b"\x22": 200}, {b"\x11": 150, b"\x22": 200, b"\x33": 50})
-EXTRACTION_FIRST_BLOCK = 100
-EXTRACTION_UNRELATED = 7  # the value of the storage tries' leaf outside the table
-EXTRACTION_ARITIES = (1, 2, 3)  # the pipeline's branch members
+PIPELINE_CONTRACT = bytes(range(20))
+PIPELINE_CHAIN_ID = 1
+PIPELINE_SLOT = 4
+PIPELINE_BLOCKS = ({b"\x11": 100, b"\x22": 200}, {b"\x11": 150, b"\x22": 200, b"\x33": 50})
+# block 101 applied as the indexer's first block: its storage trie, its state
+# path (its state trie holds one account), header and final_simple; its rows
+# tree (plan [(51, 0), (34, 0), (17, 0)]: each row's one-cell tree, then the
+# row); the new block-tree leaf, bound to the extraction; the IVC step
 EXTRACTION_PROOFS = ["leaf_mapping"] * 3 + ["branch2"] * 2
-# block 101's state path (its state trie holds one account), header and final
 FINAL_EXTRACTION_PROOFS = ["account_leaf", "block", "final_simple"]
+ROWS_PROOFS = ["cells_leaf", "rows_leaf"] + ["cells_leaf", "rows_partial"] * 2
+PIPELINE_PROOFS = (EXTRACTION_PROOFS + FINAL_EXTRACTION_PROOFS + ROWS_PROOFS
+                   + ["block_leaf_bound", "ivc_first"])
+# apply_block's four steps, each by the sets that prove it
+PIPELINE_STEPS = (("extraction", ("vx", "cx", "bx", "fx")), ("rows", ("cells", "rows")),
+                  ("block node", ("block",)), ("IVC", ("ivc",)))
 
 
-def _extraction_table():
-    """(column, key_id, value_id) of the mapping table, derived as
-    mp2_tpu/models/pipeline.py:78-86 derives them."""
-    key_id = XV.identifier_for_mapping_key_column(EXTRACTION_SLOT, EXTRACTION_CONTRACT,
-                                                  EXTRACTION_CHAIN_ID)
-    value_id = XV.identifier_for_value_column(EXTRACTION_SLOT, 0, 256, 0,
-                                              EXTRACTION_CONTRACT, EXTRACTION_CHAIN_ID)
-    return simple_column(EXTRACTION_SLOT, value_id), key_id, value_id
-
-
-def _extraction_chain():
-    """Blocks 100 and 101 as mp2_tpu/models/pipeline.py:139-182 (make_chain)
-    builds them: each block's storage trie holds its mapping entries and the
-    unrelated leaf, its state trie one account over that storage root, and
-    its RLP header the state root and the keccak of the parent's header."""
-    blocks, parent = [], keccak256(b"genesis")
-    for number, entries in enumerate(EXTRACTION_BLOCKS, start=EXTRACTION_FIRST_BLOCK):
-        storage = MPT(secure=True)
-        for k, v in entries.items():
-            storage.insert(SK.mapping_location(EXTRACTION_SLOT, k), rlp.encode_int(v))
-        storage.insert(keccak256(b"unrelated"), rlp.encode_int(EXTRACTION_UNRELATED))
-        state = MPT(secure=True)
-        state.insert(EXTRACTION_CONTRACT, rlp.encode(
-            [b"\x01", b"\x00", storage.root_hash(), keccak256(b"code")]))
-        header = rlp.encode([parent, keccak256(b"uncles"), bytes(20), state.root_hash(),
-                             keccak256(b"tx"), keccak256(b"rc"), b"\x00" * 32, b"\x01",
-                             number.to_bytes(4, "big")])
-        blocks.append(SimpleNamespace(number=number, entries=entries, storage=storage,
-                                      state=state, header=header))
-        parent = keccak256(header)
-    return blocks
+def _pipeline_chain():
+    """The table's config and blocks 100 and 101."""
+    cfg = MappingTableConfig(PIPELINE_CONTRACT, PIPELINE_CHAIN_ID, PIPELINE_SLOT)
+    return cfg, make_chain(cfg, PIPELINE_BLOCKS)
 
 
 def _set_record(fw):
@@ -1613,55 +1639,86 @@ def _check_set(name, fw, g, wall):
           f"circuit digests, rows and wrap chains equal to the JAX package's")
 
 
-def phase_extraction_setup(card, dev, golden):
-    """The values-extraction set of the pipeline's mapping table
-    (mp2_tpu/models/circuit_pipeline.py:132-136) at test_config() against
-    the golden record of the JAX package."""
-    column, key_id, value_id = _extraction_table()
-    if [key_id, value_id] != [golden["table"]["key_id"], golden["table"]["value_id"]]:
-        _fail("extraction: the table's column identifiers differ from the JAX package's")
-    t0 = time.perf_counter()
-    vx = ValuesExtractionCircuits([column], value_id, config=test_config(),
-                                  mapping=(EXTRACTION_SLOT, key_id),
-                                  branch_arities=EXTRACTION_ARITIES, device=dev)
-    _check_set("extraction values", vx.fw, golden["set"], time.perf_counter() - t0)
-    return vx
+INDEXER_SETS = ("ValuesExtractionCircuits", "ContractExtractionCircuits",
+                "BlockExtractionFramework", "FinalExtractionCircuits", "VerifiableDbCircuits")
 
 
-def phase_final_extraction_setup(card, dev, vx, golden):
-    """The contract set, the block framework over block 101's header offsets
-    and the final set over them and the values set, at test_config(), as
-    mp2_tpu/models/circuit_pipeline.py:137-145 builds them, each against the
-    golden record of the JAX package."""
-    header = _extraction_chain()[-1].header
-    offsets = fixture_header_offsets(header)
-    if header.hex() != golden["host"]["header_rlp"] or offsets != golden["host"]["header_offsets"]:
-        _fail("final extraction: block 101's header or its offsets differ from the JAX package's")
-    if list(vx.fw.set_digest) != golden["sets"]["values_set_digest"]:
-        _fail("final extraction: the values set differs from the one the JAX package's "
-              "final set verifies")
-    built = {}
-    for name, build in (
-            ("contract", lambda: ContractExtractionCircuits(EXTRACTION_CONTRACT,
-                                                            config=test_config(), device=dev)),
-            ("block", lambda: BlockExtractionFramework(config=test_config(), device=dev,
-                                                       **offsets)),
-            ("final", lambda: FinalExtractionCircuits(built["block"], built["contract"], vx,
-                                                      config=test_config(), device=dev))):
-        t0 = time.perf_counter()
-        built[name] = build()
-        _check_set(f"extraction {name}", built[name].fw, golden["sets"][name],
-                   time.perf_counter() - t0)
-    return built["contract"], built["block"], built["final"]
+@contextlib.contextmanager
+def _timed_sets(walls):
+    """The wall of each set the indexer builds (a measurement hook of this
+    script only: it wraps the constructors models/circuit_pipeline calls)."""
+    saved = {name: getattr(CP, name) for name in INDEXER_SETS}
+
+    def timed(name, cls):
+        def build(*args, **kw):
+            t0 = time.perf_counter()
+            out = cls(*args, **kw)
+            walls[name] = time.perf_counter() - t0
+            return out
+
+        return build
+
+    for name, cls in saved.items():
+        setattr(CP, name, timed(name, cls))
+    try:
+        yield
+    finally:
+        for name, cls in saved.items():
+            setattr(CP, name, cls)
+
+
+def phase_pipeline_setup(card, dev, cfg, block, xgolden, fgolden, vgolden, pgolden):
+    """CircuitTableIndexer for the pipeline's mapping table at test_config()
+    and its sets, built through _ensure_built on block 101's header as
+    mp2_tpu/models/circuit_pipeline.py:128-154 builds them (without the query
+    circuits): the values, contract, block and final extraction sets against
+    testdata/{extraction,final_extraction}_golden.json, the verifiable DB's
+    cells and rows sets against vdb_golden.json's light ones, and its block
+    set (with block_leaf_bound and block_parent_bound over the final set) and
+    IVC set against pipeline_golden.json, each written by the JAX package.
+    Returns the indexer."""
+    host = fgolden["host"]
+    if ([cfg.key_id, cfg.value_id] != [xgolden["table"]["key_id"], xgolden["table"]["value_id"]]
+            or cfg.block_id != host["table"]["block_id"]):
+        _fail("pipeline: the table's column identifiers differ from the JAX package's")
+    offsets = fixture_header_offsets(block.header_rlp)
+    if block.header_rlp.hex() != host["header_rlp"] or offsets != host["header_offsets"]:
+        _fail("pipeline: block 101's header or its offsets differ from the JAX package's")
+    ix = CircuitTableIndexer(cfg, config=test_config(), device=dev)
+    walls = {}
+    t0, c0 = time.perf_counter(), time.process_time()
+    with _timed_sets(walls):
+        ix._ensure_built(block.header_rlp)
+    print(f"pipeline: CircuitTableIndexer._ensure_built in {time.perf_counter() - t0:.3f} s "
+          f"({time.process_time() - c0:.3f} s of this process's CPU)")
+    _check_set("extraction values", ix.vx.fw, xgolden["set"],
+               walls["ValuesExtractionCircuits"])
+    if list(ix.vx.fw.set_digest) != fgolden["sets"]["values_set_digest"]:
+        _fail("pipeline: the values set differs from the one the JAX package's final set "
+              "verifies")
+    for name, fw, cls in (("contract", ix.cx.fw, "ContractExtractionCircuits"),
+                          ("block", ix.bx.fw, "BlockExtractionFramework"),
+                          ("final", ix.fx.fw, "FinalExtractionCircuits")):
+        _check_set(f"extraction {name}", fw, fgolden["sets"][name], walls[cls])
+    print(f"pipeline vdb (test_config, extraction=fx): the four sets built and finalized in "
+          f"{walls['VerifiableDbCircuits']:.3f} s")
+    _vdb_sets("pipeline vdb", ix.vdb, vgolden["light"], ("cells", "rows"))
+    if list(ix.fx.fw.set_digest) != pgolden["sets"]["final_set_digest"]:
+        _fail("pipeline: the final set differs from the one the JAX package's block set "
+              "verifies")
+    for name in ("block", "ivc"):
+        _check_set(f"pipeline vdb {name}", getattr(ix.vdb, name), pgolden["sets"][name],
+                   walls["VerifiableDbCircuits"])
+    return ix
 
 
 @contextlib.contextmanager
 def _member_log(fws, members, envs):
     """Each member proof of the frameworks `fws` on the serial path
-    (prove_leaf, prove_aggregation): its wall, the time in witness
-    generation (member and wraps) and its envelope (a measurement hook of
-    this script only; the prove_batch share comes from a _StageLog around
-    it)."""
+    (prove_leaf, prove_aggregation): its framework's name, its wall, the
+    time in witness generation (member and wraps) and its envelope (a
+    measurement hook of this script only; the prove_batch share comes from a
+    _StageLog around it).  `fws` maps a name to a framework."""
     clock = [0.0]
     generate_witness = CircuitData.generate_witness
 
@@ -1672,197 +1729,259 @@ def _member_log(fws, members, envs):
         finally:
             clock[0] += time.perf_counter() - t0
 
-    def logged(fw, prove_fn):
+    def logged(set_name, fw, prove_fn):
         def call(name, *args, **kw):
             t0, w0 = time.perf_counter(), clock[0]
             env = prove_fn(name, *args, **kw)
             torch.cuda.synchronize()
-            members.append({"member": name, "fw": fw, "s": time.perf_counter() - t0,
-                            "witness_s": clock[0] - w0})
+            members.append({"member": name, "set": set_name, "fw": fw,
+                            "s": time.perf_counter() - t0, "witness_s": clock[0] - w0})
             envs.append((name, args, env))
             return env
 
         return call
 
     CircuitData.generate_witness = timed_witness
-    for fw in fws:
-        fw.prove_leaf = logged(fw, fw.prove_leaf)
-        fw.prove_aggregation = logged(fw, fw.prove_aggregation)
+    for set_name, fw in fws.items():
+        fw.prove_leaf = logged(set_name, fw, fw.prove_leaf)
+        fw.prove_aggregation = logged(set_name, fw, fw.prove_aggregation)
     try:
         yield
     finally:
         CircuitData.generate_witness = generate_witness
-        for fw in fws:
+        for fw in fws.values():
             del fw.prove_leaf, fw.prove_aggregation
+
+
+def _member_stages(what, members, log):
+    """Each member proof's prove_batch stages in the log: its own and its
+    wraps' (the next 1 + wrap-chain-length stages)."""
+    first, out = 0, []
+    for m in members:
+        data = m["fw"].members[m["member"]].data
+        last = first + 1 + len(m["fw"]._wrap_chain_for(data))
+        out.append(log.stages[first:last])
+        first = last
+    if first != len(log.stages):
+        _fail(f"{what}: {len(log.stages)} prove_batch calls, not {first}")
+    return out
 
 
 def _print_members(what, members, log, wall):
     """Each member proof's wall split into prove_batch (the member's and its
     wraps', the next stages of the log), witness generation and other; then
     the path's split and each prove_batch's launches."""
-    first = 0
-    for m in members:
+    for m, own in zip(members, _member_stages(what, members, log)):
         data = m["fw"].members[m["member"]].data
-        last = first + 1 + len(m["fw"]._wrap_chain_for(data))
-        own, first = log.stages[first:last], last
         pb = sum(st["s"] for st in own)
         walls = " + ".join(f"{st['s']:.3f}" for st in own)
         ns = ", ".join(str(st["n"]) for st in own)
         print(f"  {m['member']} ({data.n} rows): {m['s']:.3f} s: prove_batch {pb:.3f} s "
               f"({walls} at n {ns}), witness generation {m['witness_s']:.3f} s, other "
               f"{m['s'] - pb - m['witness_s']:.3f} s")
-    if first != len(log.stages):
-        _fail(f"{what}: {len(log.stages)} prove_batch calls, not {first}")
     prove_s = sum(st["s"] for st in log.stages)
     wit_s = sum(m["witness_s"] for m in members)
     print(f"{what} time: prove_batch {prove_s:.3f} s ({prove_s / wall:.3f}), witness "
           f"generation {wit_s:.3f} s ({wit_s / wall:.3f}), other "
-          f"{wall - prove_s - wit_s:.3f} s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    for st in log.stages:
-        print(f"  prove_batch n={st['n']} B={st['B']}: {st['s']:.3f} s, "
-              f"K1 {st['K1']}, K2 {st['K2']}, K2c {st['K2c']} launches")
+          f"{wall - prove_s - wit_s:.3f} s; peak device memory {log.peak_gib():.3f} GiB")
+    log.print()
 
 
-def phase_extraction(card, vx, block, golden, launches):
-    """Block 101's storage trie proved from its leaves to the storage root
-    through prove_trie, as mp2_tpu/models/circuit_pipeline.py:159-166 calls
-    it, on the default path (each leaf and branch a proof of its own, each
-    wrapped); timed; the root verified and held against the host model
-    extract_storage_slots, the 0x11 leaf against the JAX package's proof.
-    Returns the root's envelope and PIs, the wall and the kernel shapes that
-    the path fed."""
-    g = golden["trie"]
-    trie = block.storage
-    if trie.root_hash().hex() != g["root_hash"]:
-        _fail("extraction: block 101's trie has another root than the JAX package's")
-    column, key_id, _ = _extraction_table()
-    locations = {k: SK.mapping_location(EXTRACTION_SLOT, k) for k in sorted(block.entries)}
-    host = XA.extract_storage_slots(trie, [column], [
-        XA.SlotEntry(EXTRACTION_SLOT, loc, mapping_key=k, key_id=key_id)
+STEP_MARKS = ("_prove_extraction", "_prove_rows_plan", "_prove_block_plan")
+
+
+@contextlib.contextmanager
+def _step_marks(ix, marks):
+    """When each of apply_block's steps ends, and when prove_trie starts and
+    ends, on the host clock after a card sync (a measurement hook of this
+    script only)."""
+    def marked(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            marks[name + " start"] = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            marks[name] = time.perf_counter()
+            return out
+
+        return call
+
+    for name in STEP_MARKS:
+        setattr(ix, name, marked(name, getattr(ix, name)))
+    ix.vx.prove_trie = marked("prove_trie", ix.vx.prove_trie)
+    try:
+        yield
+    finally:
+        for name in STEP_MARKS:
+            delattr(ix, name)
+        del ix.vx.prove_trie
+
+
+def phase_pipeline_block(card, ix, cfg, block, xgolden, fgolden, pgolden, launches):
+    """Block 101 through CircuitTableIndexer.apply_block as the indexer's
+    first block (mp2_tpu/models/circuit_pipeline.py:182-340): its extraction
+    (the storage trie through prove_trie, on the default path, then the
+    state path, the header and final_simple), its rows tree (each row's
+    cells tree, then the row), the block-tree leaf bound to the extraction
+    (block_leaf_bound) and the IVC step (ivc_first), each member proof a
+    batch of one, wrapped; timed.  Checked: the trie root verified and held
+    against extract_storage_slots, the 0x11 leaf's envelope against the JAX
+    package's proof; the account leaf's and the header's envelopes against
+    the JAX package's proofs; final_simple verified, its PIs against the
+    host models (extract_block, extract_contract, final_extraction) and the
+    JAX package's, its metadata hash against the JAX package's; the rows
+    root, block_leaf_bound and ivc_first verified, their PIs against the
+    host models (rows_pi_values, block_pi_values, ivc_pi_values) and the
+    JAX package's, the rows digest against final_simple's DV.  Each kernel
+    shape the path feeds is announced (_ShapeLog)."""
+    g_trie = xgolden["trie"]
+    if block.storage.root_hash().hex() != g_trie["root_hash"]:
+        _fail("pipeline: block 101's trie has another root than the JAX package's")
+    locations = {k: SK.mapping_location(cfg.slot, k) for k in sorted(block.entries)}
+    values = XA.extract_storage_slots(block.storage, [cfg.column], [
+        XA.SlotEntry(cfg.slot, loc, mapping_key=k, key_id=cfg.key_id)
         for k, loc in locations.items()])
-    host_pis = mpt_pi_values(host.node_hash, host.values_digest, host.metadata_digest,
-                             host.n_leaves)
-    if host_pis != g["host_root_public_inputs"]:
-        _fail("extraction: the host model's root PIs differ from the JAX package's")
-    paths = {k: trie.get_proof(loc) for k, loc in locations.items()}
+    trie_pis = mpt_pi_values(values.node_hash, values.values_digest, values.metadata_digest,
+                             values.n_leaves)
+    if trie_pis != g_trie["host_root_public_inputs"]:
+        _fail("pipeline: the host model's trie root PIs differ from the JAX package's")
+    block_out = XA.extract_block(block.header_rlp)
+    contract_out = XA.extract_contract(block.state, cfg.contract_address)
+    final_out = XA.final_extraction(block_out, contract_out, values, block.storage.root_hash(),
+                                    block.state.root_hash())
+    final_host = (pack_bytes_be(final_out.block_hash) + pack_bytes_be(final_out.prev_block_hash)
+                  + [final_out.block_number] + final_out.values_digest.to_fields()
+                  + final_out.metadata_digest.to_fields() + [values.n_leaves])
+    if final_host != fgolden["host"]["final_public_inputs"]:
+        _fail("pipeline: the host models' final PIs differ from the JAX package's")
 
-    os.environ.pop("MP2_BATCH_LEAVES", None)  # the default path: one proof per node
-    members, envs = [], []
-    torch.cuda.reset_peak_memory_stats()
+    fws = {"vx": ix.vx.fw, "cx": ix.cx.fw, "bx": ix.bx.fw, "fx": ix.fx.fw,
+           **{name: getattr(ix.vdb, name) for name in VDB_SETS}}
+    members, envs, marks = [], [], {}
+    os.environ.pop("MP2_BATCH_LEAVES", None)  # the default path: one proof per trie node
     os.environ["MP2_TRACE"] = "1"  # the runtime's spans, one stderr line each
     _reset_counts()
-    with _StageLog() as log, _ShapeLog() as shapes, _member_log([vx.fw], members, envs):
-        t0 = time.perf_counter()
-        root_env, root_pis = vx.prove_trie(paths, {k: k for k in paths})
+    with _StageLog() as log, _ShapeLog(), _member_log(fws, members, envs), \
+            _step_marks(ix, marks):
+        t0, c0 = time.perf_counter(), time.process_time()
+        final_env = ix.apply_block(block)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        t_end, cpu = time.perf_counter(), time.process_time() - c0
     del os.environ["MP2_TRACE"]
-    _read_counts("extraction storage trie", launches)
-
+    wall = t_end - t0
+    _read_counts("pipeline block 101 (apply_block)", launches)
     proved = [m["member"] for m in members]
-    if proved != EXTRACTION_PROOFS:
-        _fail(f"extraction: prove_trie proved {proved}, not {EXTRACTION_PROOFS}")
-    if not vx.verify(root_env):
-        _fail("extraction: vx.verify rejected the root")
-    if (root_pis[:31] != host_pis or root_pis[95] != 0 or root_pis[30] != len(paths)
+    if proved != PIPELINE_PROOFS:
+        _fail(f"pipeline: apply_block proved {proved}, not {PIPELINE_PROOFS}")
+
+    # the extraction: the checks of the trie, state path, header and final
+    root_env = envs[len(EXTRACTION_PROOFS) - 1][2]
+    root_pis = root_env.user_inputs
+    paths = {k: block.storage.get_proof(loc) for k, loc in locations.items()}
+    if not ix.vx.verify(root_env):
+        _fail("pipeline: vx.verify rejected the trie root")
+    if (root_pis[:31] != trie_pis or root_pis[95] != 0 or root_pis[30] != len(paths)
             or root_pis[:8] != pack_bytes_be(keccak256(paths[b"\x11"][0]))
-            or root_env.public_inputs != root_pis + list(vx.fw.set_digest)):
-        _fail("extraction: the root's PIs are not the host model's H, DV, DM, N with S = 0 "
-              "and the set digest")
-    gl_leaf = golden["leaf"]
+            or root_env.public_inputs[-4:] != list(ix.vx.fw.set_digest)):
+        _fail("pipeline: the trie root's PIs are not the host model's H, DV, DM, N with "
+              "S = 0 and the set digest")
+    gl_leaf = xgolden["leaf"]
     leaf_key = left_pad32(bytes.fromhex(gl_leaf["key"]))
     (leaf_env,) = [env for name, args, env in envs
                    if name == "leaf_mapping" and args[0][1] == leaf_key]
     leaf_sha = proof_sha256(proof_to_dict(leaf_env.proof))
     if leaf_env.public_inputs != gl_leaf["public_inputs"] or leaf_sha != gl_leaf["proof_sha256"]:
-        _fail(f"extraction: the 0x11 leaf's envelope differs from the JAX package's ({leaf_sha})")
-    print(f"extraction storage trie: {len(proved)} member proofs ({', '.join(proved)}), each "
-          f"wrapped, in {wall:.3f} s; root verified, PIs 0..30 = extract_storage_slots's "
-          f"(N {root_pis[30]}), S {root_pis[95]}; the 0x11 leaf's envelope equal to the JAX "
-          f"package's ({leaf_sha[:12]})")
-    print(f"extraction_storage_proofs_per_s {len(proved) / wall:.4f} ({len(proved)} member "
-          f"proofs / {wall:.3f} s wall, wraps included); {card}")
-    _print_members("extraction storage trie", members, log, wall)
-    return root_env, root_pis, wall, shapes.keys
-
-
-def phase_final_extraction(card, cx, bx, fx, block, values_env, values_pis, golden,
-                           launches):
-    """Block 101's extraction from its storage root on, as
-    mp2_tpu/models/circuit_pipeline.py:167-171 proves it: the contract's
-    state path (one account_leaf: the state trie holds one account), the
-    header and final_simple over the three, each a batch of one, wrapped;
-    timed; each verified, the account leaf's and the header's envelopes
-    against the JAX package's proofs, the final PIs against the host models
-    (extract_block, extract_contract, extract_storage_slots, final_extraction)
-    and the JAX package's, DV against the trie root's, DM against the trie
-    root's plus the contract's metadata digest, and the metadata hash against
-    the JAX package's.  Returns the wall and the kernel shapes that the path
-    fed."""
-    column, key_id, _ = _extraction_table()
-    values = XA.extract_storage_slots(block.storage, [column], [
-        XA.SlotEntry(EXTRACTION_SLOT, SK.mapping_location(EXTRACTION_SLOT, k), mapping_key=k,
-                     key_id=key_id) for k in sorted(block.entries)])
-    block_out = XA.extract_block(block.header)
-    contract_out = XA.extract_contract(block.state, EXTRACTION_CONTRACT)
-    final_out = XA.final_extraction(block_out, contract_out, values, block.storage.root_hash(),
-                                    block.state.root_hash())
-    host_pis = (pack_bytes_be(final_out.block_hash) + pack_bytes_be(final_out.prev_block_hash)
-                + [final_out.block_number] + final_out.values_digest.to_fields()
-                + final_out.metadata_digest.to_fields() + [values.n_leaves])
-    if host_pis != golden["host"]["final_public_inputs"]:
-        _fail("final extraction: the host models' final PIs differ from the JAX package's")
-    path = block.state.get_proof(EXTRACTION_CONTRACT)
-
-    members, envs = [], []
-    torch.cuda.reset_peak_memory_stats()
-    os.environ["MP2_TRACE"] = "1"  # the runtime's spans, one stderr line each
-    _reset_counts()
-    with _StageLog() as log, _ShapeLog() as shapes, \
-            _member_log([cx.fw, bx.fw, fx.fw], members, envs):
-        t0 = time.perf_counter()
-        contract_env, _ = cx.prove_state_path(path)
-        block_env, _ = bx.prove_header(block.header)
-        final_env, final_pis = fx.prove(block_env, contract_env, values_env)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    del os.environ["MP2_TRACE"]
-    _read_counts("extraction state path + header + final_simple", launches)
-
-    proved = [m["member"] for m in members]
-    if proved != FINAL_EXTRACTION_PROOFS:
-        _fail(f"final extraction: proved {proved}, not {FINAL_EXTRACTION_PROOFS}")
-    if not (cx.verify(contract_env) and bx.verify(block_env) and fx.verify(final_env)):
-        _fail("final extraction: cx.verify, bx.verify or fx.verify rejected a proof")
+        _fail(f"pipeline: the 0x11 leaf's envelope differs from the JAX package's ({leaf_sha})")
+    contract_env, block_env = (envs[len(EXTRACTION_PROOFS) + i][2] for i in (0, 1))
+    if not (ix.cx.verify(contract_env) and ix.bx.verify(block_env)
+            and ix.fx.verify(final_env)):
+        _fail("pipeline: cx.verify, bx.verify or fx.verify rejected a proof")
     shas = []
     for name, env in (("account_leaf", contract_env), ("header", block_env)):
-        g = golden["proofs"][name]
+        g = fgolden["proofs"][name]
         sha = proof_sha256(proof_to_dict(env.proof))
         shas.append(sha)
         if env.public_inputs != g["public_inputs"] or sha != g["proof_sha256"]:
-            _fail(f"final extraction: the {name} envelope differs from the JAX package's ({sha})")
-    dm = Point.from_fields(values_pis[19:30]) + XM.contract_metadata_digest(EXTRACTION_CONTRACT)
-    md_hash = D.block_metadata_hash(Point.from_fields(final_pis[XF.F_DM]),
-                                    golden["host"]["table"]["block_id"])
-    if (final_pis[:XF.NUM_FINAL_PIS] != host_pis
-            or final_env.public_inputs != final_pis + list(fx.fw.set_digest)
-            or final_pis[XF.F_BN] != block.number or final_pis[XF.F_N] != len(block.entries)
-            or final_pis[XF.F_DV] != values_pis[8:19] or final_pis[XF.F_DM] != dm.to_fields()):
-        _fail("final extraction: the final PIs are not the host models' (BH, PH, BN = 101, "
-              "DV = the trie root's, DM = the trie root's + the contract's, N = 3) and the "
-              "set digest")
-    if list(md_hash) != golden["host"]["metadata_hash"]:
-        _fail("final extraction: the metadata hash differs from the JAX package's")
-    print(f"extraction state path + header + final_simple: {len(proved)} member proofs "
-          f"({', '.join(proved)}), each wrapped, in {wall:.3f} s; cx, bx and fx verified; the "
-          f"account_leaf and header envelopes equal to the JAX package's "
-          f"({', '.join(s[:12] for s in shas)}); final PIs = the host models' and the JAX "
-          f"package's (block {final_pis[XF.F_BN]}, N {final_pis[XF.F_N]}), DV = the trie "
-          f"root's, DM = the trie root's + the contract's; metadata hash {md_hash[0]:#x}... "
-          f"equal to the JAX package's")
-    _print_members("extraction state path + header + final_simple", members, log, wall)
-    return wall, shapes.keys
+            _fail(f"pipeline: the {name} envelope differs from the JAX package's ({sha})")
+    final_pis = final_env.user_inputs
+    dm = (Point.from_fields(root_pis[19:30])
+          + XM.contract_metadata_digest(cfg.contract_address))
+    md_hash = D.block_metadata_hash(Point.from_fields(final_pis[XF.F_DM]), cfg.block_id)
+    if (final_pis[:XF.NUM_FINAL_PIS] != final_host or final_pis[XF.F_BN] != block.number
+            or final_pis[XF.F_N] != len(block.entries) or final_pis[XF.F_DV] != root_pis[8:19]
+            or final_pis[XF.F_DM] != dm.to_fields()
+            or final_env.public_inputs[-4:] != list(ix.fx.fw.set_digest)):
+        _fail("pipeline: the final PIs are not the host models' (BH, PH, BN = 101, DV = the "
+              "trie root's, DM = the trie root's + the contract's, N = 3) and the set digest")
+    if list(md_hash) != fgolden["host"]["metadata_hash"]:
+        _fail("pipeline: the metadata hash differs from the JAX package's")
+
+    # the verifiable DB: the rows root, the bound block leaf, the IVC step
+    g = pgolden["host"]["block_101_first"]
+    rows_root = ix.rows_db.payload(ix.rows_db.root())
+    rows_env = ix.rows_root_env[block.number]
+    block_node = ix.block_db.payload(block.number)
+    bound_env = ix.block_node_env[block.number]
+    ivc_env = ix.ivc_env
+    rows_pis = V.rows_pi_values(rows_root)
+    bound_pis = V.block_pi_values(block_node)
+    ivc_pis = V.ivc_pi_values(ix.block_db.payload(ix.block_db.root()).hash, md_hash,
+                              block.number)
+    if not (ix.vdb.rows.verify(rows_env) and ix.vdb.block.verify(bound_env)
+            and ix.vdb.ivc.verify(ivc_env)):
+        _fail("pipeline: the rows root, block_leaf_bound or ivc_first was rejected")
+    if (bound_env.member != "block_leaf_bound" or ivc_env.member != "ivc_first"
+            or ix.block_db.root() != block.number):
+        _fail("pipeline: block 101 is not the block tree's bound leaf under ivc_first")
+    if (rows_env.public_inputs != rows_pis + list(ix.vdb.rows.set_digest)
+            or rows_pis != g["rows_root_public_inputs"]):
+        _fail("pipeline: the rows root's PIs differ from the host model's or the JAX "
+              "package's")
+    if _rows_digest(rows_root).to_fields() != final_pis[XF.F_DV] or \
+            final_pis[XF.F_DV] != g["rows_digest"]:
+        _fail("pipeline: the rows digest differs from final_simple's DV")
+    if (bound_env.public_inputs != bound_pis + list(ix.vdb.block.set_digest)
+            or [bound_pis] != [r["public_inputs"] for r in g["block_plan"]]):
+        _fail("pipeline: block_leaf_bound's PIs differ from the host model's or the JAX "
+              "package's")
+    if (ivc_env.public_inputs != ivc_pis + list(ix.vdb.ivc.set_digest)
+            or ivc_pis != g["ivc_public_inputs"] or list(md_hash) != g["metadata_hash"]):
+        _fail("pipeline: ivc_first's PIs differ from the host model's or the JAX package's")
+    if (ix.proofs[("final_extraction", block.number)] is not final_env
+            or ix.proofs[("ivc", block.number)] is not ivc_env):
+        _fail("pipeline: the indexer's proof store lacks the final or the IVC envelope")
+
+    trie_wall = marks["prove_trie"] - marks["prove_trie start"]
+    ends = [t0] + [marks[name] for name in STEP_MARKS] + [t_end]
+    n_ext = len(EXTRACTION_PROOFS) + len(FINAL_EXTRACTION_PROOFS)
+    print(f"pipeline block 101: apply_block proved {len(proved)} member proofs "
+          f"({', '.join(proved)}), each wrapped, in {wall:.3f} s; the trie root verified, PIs "
+          f"0..30 = extract_storage_slots's (N {root_pis[30]}), S {root_pis[95]}; the 0x11 "
+          f"leaf's, account_leaf's and header's envelopes equal to the JAX package's "
+          f"({', '.join(s[:12] for s in [leaf_sha] + shas)}); cx, bx, fx verified, final PIs "
+          f"= the host models' and the JAX package's (block {final_pis[XF.F_BN]}, N "
+          f"{final_pis[XF.F_N]}), metadata hash {md_hash[0]:#x}... equal to the JAX "
+          f"package's; the rows root, block_leaf_bound and ivc_first verified, their PIs = "
+          f"the host models' and the JAX package's, the rows digest = final_simple's DV")
+    print(f"extraction_storage_proofs_per_s {len(EXTRACTION_PROOFS) / trie_wall:.4f} "
+          f"({len(EXTRACTION_PROOFS)} member proofs / {trie_wall:.3f} s wall of prove_trie, "
+          f"wraps included); {card}")
+    print(f"extraction_block_proofs_per_s {n_ext / (ends[1] - t0):.4f} ({n_ext} member "
+          f"proofs of block 101's extraction / {ends[1] - t0:.3f} s wall: the storage trie "
+          f"{trie_wall:.3f} s, the state path, header and final_simple "
+          f"{ends[1] - t0 - trie_wall:.3f} s; wraps included); {card}")
+    print(f"pipeline_block_proofs_per_s {len(proved) / wall:.4f} ({len(proved)} member proofs "
+          f"/ {wall:.3f} s wall of apply_block, wraps included; {cpu:.3f} s of this process's "
+          f"CPU); {card}")
+    stages = _member_stages("pipeline block 101", members, log)
+    for (step, sets), t_a, t_b in zip(PIPELINE_STEPS, ends, ends[1:]):
+        own = [(m, st) for m, st in zip(members, stages) if m["set"] in sets]
+        pb = sum(s["s"] for _, st in own for s in st)
+        wit = sum(m["witness_s"] for m, _ in own)
+        print(f"pipeline block 101, {step}: {len(own)} member proofs in {t_b - t_a:.3f} s: "
+              f"prove_batch {pb:.3f} s, witness generation {wit:.3f} s, other "
+              f"{t_b - t_a - pb - wit:.3f} s")
+    _print_members("pipeline block 101", members, log, wall)
 
 
 def _shape_bound(entry, spec):
@@ -1891,15 +2010,31 @@ def _shape_bound(entry, spec):
     return _bound(8 * 4 * (batch * m + nodes), nodes * P2_ISSUES)
 
 
-def phase_extraction_shapes(card, keys):
-    """Every K2c and K1 Merkle entry shape that the extraction path fed,
-    held against its plain twin, bit for bit; each timed (the plain twin
-    once) beside its bound.  Returns the max_abs_err and the times by
-    kernel."""
+def _shape_from_json(text):
+    """A SHAPE_MARK line's key, with its lists back as tuples."""
+    return tuple(tuple(a) if isinstance(a, list) else a for a in json.loads(text))
+
+
+def phase_pipeline_shapes(card, helper, lanes):
+    """Every K2c and K1 Merkle entry shape that the pipeline's path fed, as
+    the pipeline process announces them (SHAPE_MARK lines), held against its
+    plain twin, bit for bit; each timed (the plain twin once) beside its
+    bound.  It runs in the main process while the pipeline proves, until
+    the pipeline process's output ends.  Returns the max_abs_err and the
+    times by kernel."""
     rng = np.random.default_rng(5)
     dev = torch.device("cuda")
-    err, times = 0, {}
-    for key in sorted(keys, key=repr):
+    err, times, n = 0, {}, 0
+    while True:
+        try:
+            key = helper.shapes.get(timeout=1.0)
+        except queue.Empty:
+            if lanes.failed:
+                _fail(f"{lanes.failed} failed while the main process checked the shapes")
+            continue
+        if key is None:
+            break
+        n += 1
         entry, *spec = key
         kernel, plain = SHAPE_ENTRIES[entry]
         args = [_rand_rows(rng, a, dev) if isinstance(a, tuple) else a for a in spec]
@@ -1912,50 +2047,53 @@ def phase_extraction_shapes(card, keys):
                 _fail(f"{entry} disagrees with its plain twin at {spec}")
         del got, want
         k_ms = _time_ms(lambda: kernel(*args), 5)
+        del args
         bound_ms, bound_by = _shape_bound(entry, spec)
         kernel_name = "K1" if entry in ("hash_leaves", "merkle_levels") else "K2c"
         times.setdefault(kernel_name, {})[f"{entry} {spec}"] = {
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"extraction shape {entry} {spec}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}), identical; {card}")
-    print(f"extraction path: {len(keys)} K2c and K1 Merkle entry shapes held against their "
-          f"plain twins; max_abs_err {err} (tolerance 0: bit-exact)")
+        print(f"pipeline shape {entry} {spec}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), identical; {card}", flush=True)
+    if n == 0:
+        _fail("the pipeline process announced no kernel shape")
+    print(f"pipeline path: {n} K2c and K1 Merkle entry shapes held against their plain "
+          f"twins; max_abs_err {err} (tolerance 0: bit-exact)")
     torch.cuda.empty_cache()
     return err, times
 
 
-# the other processes of this script and the card's two lanes
+# the other processes of this script and the card's lanes
 VDB_LIGHT_FLAG = "--vdb-light"
 VDB_PRODUCTION_FLAG = "--vdb-production"
 EXTRACTION_FLAG = "--extraction"
 HELPERS = (VDB_LIGHT_FLAG, VDB_PRODUCTION_FLAG, EXTRACTION_FLAG)
 LANE_MARK = "@card"  # a helper's request for a lane and its release, one line each
-# each lane's steps in the order they run.  A heavy step takes ~38-41 GiB
-# of the card at its peak, so two never run together; the other steps take
-# 18-25 GiB, and block 101's extraction (41 GiB) waits for the production
-# vdb chain (25) to end, the one pair that would leave the card under ~3 GiB
-# free
-HEAVY_ORDER = ("vdb row update + block tree", "extraction block 101")
+# each lane's steps in the order they run.  Since prove_batch's quotient,
+# FRI combination and constant-matrix products run in bounded pieces, a
+# 2^16-row proof adds ~9 GiB to its process's resident sets (36 GiB before),
+# so steps no longer need to take turns for memory: the lanes only order
+# them.  The heavy lane ("H") runs the row update, then block 101 through
+# the pipeline, whose process holds the most sets (~14 GiB) and whose set-up
+# ends last; the block path ("B") starts after the row update, beside the
+# pipeline's set-up; the other lane ("O") runs the remaining steps
+HEAVY_ORDER = ("vdb row update", "pipeline block 101")
+BLOCK_ORDER = ("vdb block tree + IVC",)
 OTHER_ORDER = ("recursion production", "vdb production chain", "recursion light",
                "vdb light golden chain")
-AFTER = {"extraction block 101": "vdb production chain"}
+LANES = {"H": HEAVY_ORDER, "B": BLOCK_ORDER, "O": OTHER_ORDER}
 
 
 class _Card:
-    """The card's two lanes, granted by the main process: the heavy lane
-    ("H": the row update with the block path, then block 101's extraction) and
-    the other lane ("O": every other step that proves), each in its fixed
-    order, a step also after the one AFTER names.  One step of each lane
-    may run at once.  The main process holds both lanes through the kernel
-    phases and the tree-node timing.  Each request, grant and release is
-    logged with its time."""
+    """The card's lanes (LANES), granted by the main process, each running
+    its steps in their fixed order, one at a time.  The main process holds
+    every lane through the kernel phases and the tree-node timing.  Each
+    request, grant and release is logged with its time."""
 
     def __init__(self, t_start, holder):
         self.cv = threading.Condition()
         self.t_start = t_start
-        self.busy = {"H": holder, "O": holder}
-        self.queue = {"H": list(HEAVY_ORDER), "O": list(OTHER_ORDER)}
-        self.done = set()
+        self.busy = {lane: holder for lane in LANES}
+        self.queue = {lane: list(order) for lane, order in LANES.items()}
         self.log = []
         self.failed = None  # a helper that exited with an error
         for lane in self.busy:
@@ -1967,8 +2105,7 @@ class _Card:
     def acquire(self, lane, step):
         with self.cv:
             self._note(lane, step, "wanted")
-            while not (self.busy[lane] is None and self.queue[lane][0] == step
-                       and (step not in AFTER or AFTER[step] in self.done)):
+            while not (self.busy[lane] is None and self.queue[lane][0] == step):
                 if self.failed:
                     _fail(f"{self.failed} failed while {step} waited for the card")
                 self.cv.wait(1.0)
@@ -1980,7 +2117,6 @@ class _Card:
         with self.cv:
             if self.busy[lane] == step:
                 self.busy[lane] = None
-                self.done.add(step)
                 self._note(lane, step, "released")
                 self.cv.notify_all()
 
@@ -2041,6 +2177,9 @@ class _Helper:
     def __init__(self, flag, card):
         here = os.path.dirname(os.path.abspath(__file__))
         self.flag, self.card, self.lines, self.held = flag, card, [], set()
+        self.stdin_lock = threading.Lock()
+        self.last_line = self.exited = 0.0  # on the script's clock
+        self.shapes = queue.Queue()  # the shapes it announces, then None
         self.proc = subprocess.Popen(
             [sys.executable, os.path.join(here, "chip_smoke.py"), flag], cwd=here,
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -2051,21 +2190,32 @@ class _Helper:
     def _read(self):
         for line in self.proc.stdout:
             self.lines.append(line)
+            self.last_line = time.perf_counter() - self.card.t_start
+            if line.startswith(SHAPE_MARK):
+                self.shapes.put(_shape_from_json(line[len(SHAPE_MARK):]))
             if line.startswith(LANE_MARK):
                 _, verb, lane, step = line.split(maxsplit=3)
                 step = step.strip()
                 if verb == "want":
                     self.card.acquire(lane, step)
                     self.held.add((lane, step))
-                    self.proc.stdin.write("go\n")
-                    self.proc.stdin.flush()
+                    self.send("go")
                 else:
                     self.card.release(lane, step)
                     self.held.discard((lane, step))
-        if self.proc.wait() != 0:
+        self.shapes.put(None)
+        code = self.proc.wait()
+        self.exited = time.perf_counter() - self.card.t_start
+        if code != 0:
             self.card.fail(self.flag)
         for lane, step in self.held:
             self.card.release(lane, step)
+
+    def send(self, line):
+        """One line on its input."""
+        with self.stdin_lock:
+            self.proc.stdin.write(line + "\n")
+            self.proc.stdin.flush()
 
     def result(self):
         """Its output, printed; its last line as JSON; fails with it."""
@@ -2085,12 +2235,50 @@ def _join(helpers, card):
     return [h.result() for h in failed + helpers]
 
 
+BUILT = "built"  # the main process's line to each helper once the kernels are built
+_kernels_built = []  # in a helper: whether that line has come
+
+
+def _main_line(want):
+    """In a helper: wait for the main process's line `want` (BUILT, or "go"
+    for a lane), noting BUILT whenever it comes."""
+    while True:
+        line = sys.stdin.readline().rstrip("\n")
+        if line == BUILT:
+            _kernels_built.append(True)
+        if line == want:
+            return
+        if line != BUILT:
+            _fail(f"the main process sent {line!r}, not {want!r}")
+
+
+def _builds_from_main():
+    """In a helper, started beside the kernel builds: its first kernel
+    launch waits for the main process's line saying that the kernels are
+    built, then loads them from the build directory (a helper never
+    compiles them itself)."""
+    def waiting(build):
+        def call():
+            if not _kernels_built:
+                _main_line(BUILT)
+            return build()
+
+        return call
+
+    for mod in (K, N, T):
+        mod.build = waiting(mod.build)
+
+
 def _settled():
     """After a process's set-up: its objects (the circuits' millions) move
     to the collector's permanent generation, so the first collections while
     it proves do not walk them all (25-45 s in the first proof after the
-    extraction sets), and the set-up's cached blocks go back to the card."""
+    extraction sets), the collector stays off while it proves (a witness
+    generation leaves a few thousand tracked objects; the collections cost
+    ~10% of its time), and the set-up's cached blocks go back to the
+    card."""
     gc.freeze()
+    gc.disable()
     torch.cuda.empty_cache()
 
 
@@ -2099,8 +2287,7 @@ def _lane(lane, step):
     """In a helper: wait until the main process grants `lane` to `step`;
     give it back at the end."""
     print(f"{LANE_MARK} want {lane} {step}", flush=True)
-    if sys.stdin.readline() != "go\n":
-        _fail(f"the main process did not grant the card to {step}")
+    _main_line("go")
     print(f"{step}: granted; this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
           f"GiB of the card ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)",
           flush=True)
@@ -2114,14 +2301,16 @@ def _lane(lane, step):
 
 def vdb_light_process(card, dev, golden):
     """The light vdb sets (VDB_LIGHT_FLAG): set up beside the kernel
-    phases, then the row update and the block path on the heavy lane, then
-    the golden chain.  The last line is the paths' launch counts."""
+    phases, then the row update on the heavy lane, the block path on its
+    own lane and the golden chain on the other lane.  The last line is the
+    paths' launch counts."""
     launches = {}
     vdb = _phase("vdb light set-up", phase_vdb_light_setup, card, dev, golden)
     _settled()
     with _lane("H", HEAVY_ORDER[0]):
         counts, rows_db, rows_root = _phase("vdb row update", phase_vdb_update, card, vdb,
                                             launches)
+    with _lane("B", BLOCK_ORDER[0]):
         _phase("vdb block tree + IVC", phase_vdb_block_ivc, card, vdb, rows_db, rows_root,
                launches)
     with _lane("O", OTHER_ORDER[3]):
@@ -2138,33 +2327,21 @@ def vdb_production_process(card, dev, golden):
     print(json.dumps({"launches": {}}))
 
 
-def extraction_process(card, dev, xgolden, fgolden):
-    """The extraction phases (EXTRACTION_FLAG): the values, contract, block
-    and final sets set up beside the kernel phases, then on the heavy lane
-    after the block path block 101's storage trie, its state path, header
-    and final_simple, and the kernel shapes they fed.  The last line is the
-    paths' launch counts, the shapes' max_abs_err and their times."""
+def extraction_process(card, dev, xgolden, fgolden, vgolden, pgolden):
+    """The pipeline (EXTRACTION_FLAG): CircuitTableIndexer's sets set up
+    beside the kernel phases, then on the heavy lane block 101 through
+    apply_block, announcing each kernel shape it feeds for the main process
+    to check.  The last line is the path's launch counts."""
     launches = {}
-    vx = _phase("extraction values set-up", phase_extraction_setup, card, dev, xgolden)
-    cx, bx, fx = _phase("extraction contract, block and final set-up",
-                        phase_final_extraction_setup, card, dev, vx, fgolden)
+    cfg, chain = _pipeline_chain()
+    block = chain[-1]
+    ix = _phase("pipeline set-up", phase_pipeline_setup, card, dev, cfg, block, xgolden,
+                fgolden, vgolden, pgolden)
     _settled()
-    block = _extraction_chain()[-1]
     with _lane("H", HEAVY_ORDER[1]):
-        values_env, values_pis, trie_wall, keys = _phase(
-            "extraction storage trie", phase_extraction, card, vx, block, xgolden, launches)
-        final_wall, final_keys = _phase(
-            "extraction state path + header + final_simple", phase_final_extraction, card, cx,
-            bx, fx, block, values_env, values_pis, fgolden, launches)
-        n_proofs = len(EXTRACTION_PROOFS) + len(FINAL_EXTRACTION_PROOFS)
-        wall = trie_wall + final_wall
-        print(f"extraction_block_proofs_per_s {n_proofs / wall:.4f} ({n_proofs} member proofs "
-              f"of block 101's extraction / {wall:.3f} s wall: the storage trie "
-              f"{trie_wall:.3f} s, the state path, header and final_simple {final_wall:.3f} s; "
-              f"wraps included); {card}")
-        err, times = _phase("extraction kernel shapes", phase_extraction_shapes, card,
-                            keys | final_keys)
-    print(json.dumps({"launches": launches, "max_abs_err": err, "shapes": times}))
+        _phase("pipeline block 101", phase_pipeline_block, card, ix, cfg, block, xgolden,
+               fgolden, pgolden, launches)
+    print(json.dumps({"launches": launches}))
 
 
 def main():
@@ -2179,11 +2356,15 @@ def main():
         xgolden = json.load(f)
     with open(os.path.join(TESTDATA, "final_extraction_golden.json")) as f:
         fgolden = json.load(f)
+    with open(os.path.join(TESTDATA, "pipeline_golden.json")) as f:
+        pgolden = json.load(f)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
+    if sys.argv[1:] and sys.argv[1] in HELPERS:
+        _builds_from_main()
     if sys.argv[1:] == [VDB_LIGHT_FLAG]:
         vdb_light_process(card, dev, vgolden)
         return 0
@@ -2191,22 +2372,25 @@ def main():
         vdb_production_process(card, dev, vgolden)
         return 0
     if sys.argv[1:] == [EXTRACTION_FLAG]:
-        extraction_process(card, dev, xgolden, fgolden)
+        extraction_process(card, dev, xgolden, fgolden, vgolden, pgolden)
         return 0
     t_start = time.perf_counter()
     launches = {}
 
-    # the kernels are built first; then three processes of this script set
-    # up the vdb and extraction sets on the host (with the fixed
-    # commitments' short launches) beside the kernel phases and the
-    # tree-node timing, which hold the whole card; after them every step
-    # that proves takes a lane of the card (see _Card)
-    builds = _phase("kernel builds", phase_builds)
+    # three processes of this script set up the vdb and pipeline sets on
+    # the host from the start, beside the kernel builds (their first kernel
+    # launch waits for them), then beside the kernel phases and the
+    # tree-node timing, which hold the whole card (with the fixed
+    # commitments' short launches); after them every step that proves takes
+    # a lane of the card (see _Card)
     lanes = _Card(t_start, "kernel phases and tree-node timing")
     helpers = [_Helper(flag, lanes) for flag in HELPERS]
     memory = _FreeMemory(t_start)
     toolchain = ThreadPoolExecutor(1)
     try:
+        builds = _phase("kernel builds", phase_builds)
+        for h in helpers:
+            h.send(BUILT)
         sass_lines = toolchain.submit(_phase, "toolchain", phase_toolchain, card, builds)
         p1 = _phase("P1 probe", phase_probe, card)
         k1_err, k1_times = _phase("K1", phase_k1, card)
@@ -2223,8 +2407,8 @@ def main():
         lines, sass = sass_lines.result()
         print("\n".join(lines))
         toolchain.shutdown()
-        lanes.release("H", "kernel phases and tree-node timing")
-        lanes.release("O", "kernel phases and tree-node timing")
+        for lane in LANES:
+            lanes.release(lane, "kernel phases and tree-node timing")
         fw = _phase("recursion light set-up", _framework, "light (test_config)",
                     test_config(), dev, rgolden["light"])
         fw_production = _phase("recursion production set-up", _framework,
@@ -2241,6 +2425,8 @@ def main():
                    launches)
             del fw
             torch.cuda.empty_cache()
+        shapes_err, shapes = _phase("pipeline kernel shapes", phase_pipeline_shapes, card,
+                                    helpers[HELPERS.index(EXTRACTION_FLAG)], lanes)
         results = _phase("the other processes (join)", _join, helpers, lanes)
     except BaseException:
         for h in helpers:
@@ -2250,11 +2436,13 @@ def main():
             h.proc.wait()
         raise
     lanes.report()
+    for h in helpers:
+        print(f"process {h.flag}: last line at {h.last_line:.1f} s, exited at "
+              f"{h.exited:.1f} s")
     memory.report()
     for r in results:
         launches.update(r["launches"])
     counts = results[0]["row_update"]
-    x = results[2]
 
     def by_path(name):
         return {p: c[name] for p, c in launches.items()}
@@ -2272,12 +2460,12 @@ def main():
         {"name": "poseidon2_permute_planar", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/poseidon2.cu",
          "replaces": "mp2_tpu/ops/poseidon2_pallas.py:114",
-         "launches": counts["K1"], "max_abs_err": max(k1_err, k1m_err, x["max_abs_err"]),
+         "launches": counts["K1"], "max_abs_err": max(k1_err, k1m_err, shapes_err),
          **k1_times[1 << 20], "library_ms": None, "lanes": 1 << 20,
          "launches_by_path": by_path("K1"),
          "launches_by_entry_and_path": by_path("K1 entries"),
          "by_lanes": {str(k): v for k, v in k1_times.items()},
-         "merkle_entries": k1m_times, "extraction_shapes": x["shapes"].get("K1", {}),
+         "merkle_entries": k1m_times, "pipeline_shapes": shapes.get("K1", {}),
          "sass": sass["K1"]},
         {"name": "ntt_rows", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/ntt.cu",
@@ -2288,10 +2476,10 @@ def main():
         {"name": "ntt_four_step_t", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/ntt_t.cu",
          "replaces": "mp2_tpu/ops/ntt_pallas.py:526",
-         "launches": counts["K2c"], "max_abs_err": max(k2c_err, x["max_abs_err"]),
+         "launches": counts["K2c"], "max_abs_err": max(k2c_err, shapes_err),
          **k2c_times[k2c_shape], "library_ms": None, "shape": k2c_shape,
          "launches_by_path": by_path("K2c"), "by_shape": k2c_times,
-         "extraction_shapes": x["shapes"].get("K2c", {}), "sass": sass["K2c"]},
+         "pipeline_shapes": shapes.get("K2c", {}), "sass": sass["K2c"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

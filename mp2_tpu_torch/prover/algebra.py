@@ -12,6 +12,8 @@ from mp2_tpu_torch.field import ext2
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.field.goldilocks import P
 
+_PRODUCT_ELEMS = 1 << 24  # elements of one block of a constant-matrix product
+
 
 class HostExtAlgebra:
     """Values are (c0, c1) python-int pairs in GF(p^2)."""
@@ -119,15 +121,28 @@ class TorchAlgebra:
         kk = max(1, max(len(j) for j in nonzero))
         if 2 * kk > k:
             a = gl.from_u64(A, self.device).reshape((m, k) + tail)
-            return gl.sum_axis(gl.mul(a, v[None]), axis=1)
+            return self._row_blocks(m, k * v[0].numel(),
+                                    lambda r: gl.sum_axis(gl.mul(a[r], v[None]), axis=1))
         idx = np.zeros((m, kk), dtype=np.int64)
         coef = np.zeros((m, kk), dtype=np.uint64)  # zero coefficients pad short rows
         for i, j in enumerate(nonzero):
             idx[i, : len(j)] = j
             coef[i, : len(j)] = A[i, j]
-        rows = v[torch.from_numpy(idx).to(v.device)]  # (m, kk, ...)
+        idx_t = torch.from_numpy(idx).to(v.device)
         c = gl.from_u64(coef, self.device).reshape((m, kk) + tail)
-        return gl.sum_axis(gl.mul(c, rows), axis=1)
+        return self._row_blocks(m, kk * v[0].numel(),
+                                lambda r: gl.sum_axis(gl.mul(c[r], v[idx_t[r]]), axis=1))
+
+    @staticmethod
+    def _row_blocks(m, row_elems, rows_of):
+        """rows_of(slice) over the m output rows, in blocks whose products
+        hold about _PRODUCT_ELEMS elements: a dense 22 x 34 product over a
+        quotient chunk of 2^19 points would hold 3 GiB in each of a field
+        multiply's temporaries."""
+        step = max(1, _PRODUCT_ELEMS // row_elems)
+        if step >= m:
+            return rows_of(slice(0, m))
+        return torch.cat([rows_of(slice(r, min(m, r + step))) for r in range(0, m, step)])
 
     def add_col_const(self, v, col):
         """v (k, ...) + per-lane constants col (k,)."""

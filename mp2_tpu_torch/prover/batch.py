@@ -35,14 +35,25 @@ from mp2_tpu_torch.prover.prove import (
     CircuitData,
     Openings,
     Proof,
-    _gate_terms,
     _lde_tables,
     _powers_device,
 )
 
 
-_SUM_ELEMS = 1 << 25  # elements of one product chunk in _weighted_sum
+# elements of one product chunk in _weighted_sum and in the quotient's
+# permutation products
+_SUM_ELEMS = 1 << 24
 _QUOTIENT_ELEMS = 1 << 19  # batch elements x coset points per quotient chunk
+
+# measurement hooks, empty unless a caller measures: each is called with a
+# stage's name as prove_batch leaves the stage, the quotient's parts once per
+# chunk (chip_smoke.py reads the card's peak memory of each stage there)
+STAGE_HOOKS: list = []
+
+
+def _stage_done(name: str) -> None:
+    for hook in STAGE_HOOKS:
+        hook(name)
 
 
 def _weighted_sum(terms: torch.Tensor, weights: torch.Tensor, axis: int) -> torch.Tensor:
@@ -141,11 +152,50 @@ def _quotient_batched(data: CircuitData, wire_lde, zs_lde, betas, gammas,
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
+class _AlphaSums:
+    """sum_k alpha_c^k * term_k for each challenge c, over constraint terms
+    that arrive in order, a group (k, B, m) at a time.  Groups wait until
+    they hold about _SUM_ELEMS elements and are then weighted together: a
+    large chunk keeps about one gate type's terms alive at once, a small one
+    is weighted in one piece (few launches).  Field sums are exact in any
+    order: the sums equal one weighted sum of all the terms stacked."""
+
+    def __init__(self, alphas: torch.Tensor):
+        self.alphas = alphas  # (nc, B)
+        self.offset = [torch.ones_like(a) for a in alphas]  # alpha_c^(terms so far)
+        self.sums = [None] * alphas.shape[0]
+        self.pending, self.pending_elems = [], 0
+
+    def add(self, terms: torch.Tensor) -> None:
+        self.pending.append(terms)
+        self.pending_elems += terms.numel()
+        if self.pending_elems >= _SUM_ELEMS:
+            self._weigh()
+
+    def _weigh(self) -> None:
+        terms = self.pending[0] if len(self.pending) == 1 else torch.cat(self.pending)
+        self.pending, self.pending_elems = [], 0
+        k = terms.shape[0]
+        for c, alpha in enumerate(self.alphas):
+            pows = _powers_device(alpha, k + 1)  # (k + 1, B)
+            weights = gl.mul(pows[:k], self.offset[c][None])
+            part = _weighted_sum(terms, weights[:, :, None], 0)
+            self.sums[c] = part if self.sums[c] is None else gl.add(self.sums[c], part)
+            self.offset[c] = gl.mul(self.offset[c], pows[k])
+
+    def result(self) -> List[torch.Tensor]:
+        if self.pending:
+            self._weigh()
+        return self.sums
+
+
 def _quotient_points(data: CircuitData, wire_lde, zs_lde, z_next, x, zh_inv, l0,
                      fl, betas, gammas, alphas, pi_hash) -> torch.Tensor:
     """The quotient at m coset points: wire_lde (B, W, m), zs_lde (B, zc, m),
     z_next (B, nc, m), x / 1/Z_H / L0 (m,), fixed columns fl (F, m)
-    -> (B, nc, m)."""
+    -> (B, nc, m).  The terms are weighted as they come (_AlphaSums), and
+    the permutation products run over slices of about _SUM_ELEMS elements,
+    whole permutation chunks each."""
     cfg = data.config
     W = cfg.num_wires
     T = data.num_gate_types
@@ -161,34 +211,45 @@ def _quotient_points(data: CircuitData, wire_lde, zs_lde, z_next, x, zh_inv, l0,
     sigma_m = fl[T + nC : T + nC + W]
     wires = [wire_lde[:, j] for j in range(W)]
     extras = {"pi_hash": [pi_hash[:, i][:, None] for i in range(4)]}
-    groups = [torch.stack(_gate_terms(data, alg, sel, consts, wires, extras))]
+    sums = _AlphaSums(alphas)
+    for t, (_, gate) in enumerate(data.gate_types):
+        terms = [alg.mul(sel[t], c) for c in gate.constraints(alg, wires, consts, extras)]
+        if terms:
+            sums.add(torch.stack(terms))
+        del terms
+    _stage_done("quotient_gates")
 
     k_vec = gl.from_u64(data.k_coeffs, dev)
+    width = W // n_chunks  # wires per permutation chunk
+    step = max(1, _SUM_ELEMS // (B * width * m))  # permutation chunks per slice
     for c in range(cfg.num_challenges):
         beta = betas[c][:, None, None]
         gamma = gammas[c][:, None, None]
         base = c * (1 + npp)
         z = zs_lde[:, base]
         partials = zs_lde[:, base + 1 : base + 1 + npp]
-        groups.append(gl.mul(l0, gl.sub(z, torch.ones_like(z)))[None])
+        sums.add(gl.mul(l0, gl.sub(z, torch.ones_like(z)))[None])
         bk = gl.mul(k_vec[None, :, None], beta)  # (B, W, 1)
-        num_all = gl.add(gl.add(wire_lde, gl.mul(bk, x)), gamma)
-        den_all = gl.add(gl.add(wire_lde, gl.mul(sigma_m[None], beta)), gamma)
-        nums = _pairwise_prod(num_all.reshape(B, n_chunks, -1, m), 2)
-        dens = _pairwise_prod(den_all.reshape(B, n_chunks, -1, m), 2)
+        nums, dens = [], []
+        for g0 in range(0, n_chunks, step):
+            g = min(step, n_chunks - g0)
+            w = slice(g0 * width, (g0 + g) * width)
+            num = gl.add(gl.add(wire_lde[:, w], gl.mul(bk[:, w], x)), gamma)
+            nums.append(_pairwise_prod(num.reshape(B, g, width, m), 2))
+            del num
+            den = gl.add(gl.add(wire_lde[:, w], gl.mul(sigma_m[w][None], beta)), gamma)
+            dens.append(_pairwise_prod(den.reshape(B, g, width, m), 2))
+            del den
+        nums, dens = torch.cat(nums, dim=1), torch.cat(dens, dim=1)  # (B, n_chunks, m)
         pps = torch.cat([z[:, None], partials, z_next[:, c][:, None]], dim=1)
         diff = gl.sub(gl.mul(pps[:, 1:], dens), gl.mul(pps[:, :-1], nums))
-        groups.append(diff.transpose(0, 1))  # (n_chunks, B, m)
-
-    all_terms = torch.cat(groups, dim=0)  # (K, B, m)
-    del groups
-    K = all_terms.shape[0]
-    outs = []
-    for c in range(cfg.num_challenges):
-        apows = _powers_device(alphas[c], K)  # (K, B)
-        acc = _weighted_sum(all_terms, apows[:, :, None], 0)
-        outs.append(gl.mul(acc, zh_inv))
-    return torch.stack(outs, dim=1)
+        del nums, dens, pps
+        sums.add(diff.transpose(0, 1))  # (n_chunks, B, m)
+        del diff
+    _stage_done("quotient_permutation")
+    out = torch.stack([gl.mul(acc, zh_inv) for acc in sums.result()], dim=1)
+    _stage_done("quotient_sums")
+    return out
 
 
 def _ext_powers_batched(z: GF2, count: int) -> GF2:
@@ -224,23 +285,32 @@ def _combine_invs(zeta: GF2, gzeta: GF2, big: int, device):
     return inv_at(zeta), inv_at(gzeta)
 
 
-def _combine_core(all_lde, z_lde, opens1: GF2, opens2: GF2, alpha: GF2,
+def _combine_core(ldes, z_lde, opens1: GF2, opens2: GF2, alpha: GF2,
                   inv1: GF2, inv2: GF2) -> GF2:
     """FINAL(x) = sum_i a^i (p_i(x) - o_i)/(x - zeta)
-               + a^C1 * sum_i a^i (z_i(x) - o'_i)/(x - g zeta), per element."""
-    C1 = all_lde.shape[1]
+               + a^C1 * sum_i a^i (z_i(x) - o'_i)/(x - g zeta), per element.
+    The p_i are the columns of `ldes` in order, a list of (B, C_j, big)
+    oracles summed one at a time (no copy of them all side by side)."""
+    C1 = sum(lde.shape[1] for lde in ldes)
     C2 = z_lde.shape[1]
     apows = _ext_powers_batched(alpha, max(C1, C2) + 1)  # (k, B)
 
-    def batch_sum(lde, opens: GF2, k: int):
+    def batch_sum(parts, opens: GF2, k: int):
         ap = GF2(apows.c0[:k].T, apows.c1[:k].T)  # (B, k)
-        acc0 = _weighted_sum(lde, ap.c0[:, :, None], 1)
-        acc1 = _weighted_sum(lde, ap.c1[:, :, None], 1)
+        acc0 = acc1 = None
+        first = 0
+        for lde in parts:
+            w = lde.shape[1]
+            p0 = _weighted_sum(lde, ap.c0[:, first:first + w, None], 1)
+            p1 = _weighted_sum(lde, ap.c1[:, first:first + w, None], 1)
+            acc0 = p0 if acc0 is None else gl.add(acc0, p0)
+            acc1 = p1 if acc1 is None else gl.add(acc1, p1)
+            first += w
         o = ext2.sum_axis(ext2.mul(ap, opens), axis=1)  # (B,)
         return ext2.sub(GF2(acc0, acc1), GF2(o.c0[:, None], o.c1[:, None]))
 
-    q1 = ext2.mul(batch_sum(all_lde, opens1, C1), inv1)
-    q2 = ext2.mul(batch_sum(z_lde, opens2, C2), inv2)
+    q1 = ext2.mul(batch_sum(ldes, opens1, C1), inv1)
+    q2 = ext2.mul(batch_sum([z_lde], opens2, C2), inv2)
     shift = apows[C1]  # (B,)
     q2s = ext2.mul(q2, GF2(shift.c0[:, None], shift.c1[:, None]))
     return ext2.add(q1, q2s)
@@ -328,6 +398,7 @@ def prove_batch(
     ch = Challenger((B,), dev)
     ch.observe(gl.from_u64(data.circuit_digest, dev).expand(B, 4))
     ch.observe(pi_h)
+    _stage_done("pi_hash")
 
     # --- wires ---
     wit = gl.from_u64(np.asarray(witnesses, dtype=np.uint64), dev)  # (B, n, W)
@@ -337,6 +408,7 @@ def prove_batch(
     ch.observe(wires_tree.cap.reshape(B, -1))
     betas = torch.stack(ch.get_n_challenges(nc))  # (nc, B)
     gammas = torch.stack(ch.get_n_challenges(nc))
+    _stage_done("wires")
 
     # --- permutation columns ---
     zs_coeffs = ntt.intt(_compute_zs_batched(data, wit, betas, gammas))
@@ -344,6 +416,7 @@ def prove_batch(
     zs_tree = BatchedMerkleTree.from_lde(zs_lde, cap_height=cap_h)
     ch.observe(zs_tree.cap.reshape(B, -1))
     alphas = torch.stack(ch.get_n_challenges(nc))
+    _stage_done("zs")
 
     # --- quotient ---
     quo_vals = _quotient_batched(data, wire_lde, zs_lde, betas, gammas, alphas, pi_h)
@@ -352,6 +425,7 @@ def prove_batch(
     quo_tree = BatchedMerkleTree.from_lde(quo_lde, cap_height=cap_h)
     ch.observe(quo_tree.cap.reshape(B, -1))
     zeta = ch.get_extension_challenge()
+    _stage_done("quotient")
 
     # --- openings at zeta (all oracles) and g*zeta (Z columns) ---
     g = ntt._root_of_unity(log_n)
@@ -369,26 +443,30 @@ def prove_batch(
     ], 1)  # (B, n_open)
     ch.observe(torch.stack([opens.c0, opens.c1], dim=2).reshape(B, -1))
     alpha_fri = ch.get_extension_challenge()
+    _stage_done("openings")
 
     # --- FRI: combined polynomial, commit phase, grinding, queries ---
     inv1, inv2 = _combine_invs(zeta, gzeta, big, dev)
-    all_lde = torch.cat(
-        [data.fixed_lde[None].expand(B, -1, -1), wire_lde, zs_lde, quo_lde], dim=1
-    )
-    n1 = all_lde.shape[1]
+    ldes = [data.fixed_lde[None].expand(B, -1, -1), wire_lde, zs_lde, quo_lde]
+    n1 = sum(lde.shape[1] for lde in ldes)
+    if B * n1 * big <= _SUM_ELEMS:  # small oracles: one product, fewer launches
+        ldes = [torch.cat(ldes, dim=1)]
     final_evals = _combine_core(
-        all_lde, zs_lde[:, z_cols], opens[:, :n1], opens[:, n1:], alpha_fri,
+        ldes, zs_lde[:, z_cols], opens[:, :n1], opens[:, n1:], alpha_fri,
         inv1, inv2,
     )
+    _stage_done("combine")
     fold_trees, fc0, fc1 = fri_mod.commit_phase(
         ch, fri_mod.bit_reverse_ext(final_evals), cfg.fri, log_n,
         cfg.fri_final_poly_bits, SHIFT,
     )
+    _stage_done("fri_commit")
     buffer = (torch.stack(ch.input_buffer) if ch.input_buffer
               else gl.zeros((0, B), dev))
     pow_witnesses = _grind_from_state(ch.state, buffer, cfg.fri.proof_of_work_bits)
     ch.observe(gl.from_u64(pow_witnesses, dev))
     ch.get_challenge()  # pow response, keeps transcripts in lockstep
+    _stage_done("grinding")
     idx = torch.stack(
         ch.get_n_challenges(cfg.fri.num_query_rounds), dim=1
     ) & (big - 1)  # (B, q); big is a power of two
@@ -417,6 +495,7 @@ def prove_batch(
     o1_l = host(opens.c1).tolist()
     zc = nc * (1 + npp)
     qc = nc * qk
+    _stage_done("queries")
 
     proofs: List[Proof] = []
     for b in range(B):

@@ -25,9 +25,7 @@ PI layouts (within the padded width NUM_USER_PIS=43):
   block: h(4) | digest(11) | min(8) | max(8)                    (= 31)
   ivc:   block_root(4) | metadata(4) | latest_block(1)          (= 9)
 
-A jax-free copy of `mp2_tpu/vdb/circuits.py` without the extraction-bound
-block members (`block_leaf_bound`, `block_parent_bound`), which need the
-final-extraction circuits: only the imports change, and
+A jax-free copy of `mp2_tpu/vdb/circuits.py`: only the imports change, and
 `VerifiableDbCircuits` takes the device its circuits are compiled for and
 proved on (`device="cuda"` unless the caller asks for the CPU).
 """
@@ -35,7 +33,7 @@ proved on (`device="cuda"` unless the caller asks for the CPU).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from mp2_tpu_torch.circuit.builder import CircuitBuilder, Target
 from mp2_tpu_torch.circuit.gadgets.curve import (
@@ -447,6 +445,35 @@ def _build_block_leaf(b, children, foreign):
     return assign
 
 
+def _build_block_leaf_bound(b, children, foreign):
+    """Block leaf that ALSO verifies a final-extraction proof and enforces
+    in-circuit that the extracted value digest equals the rows-tree digest
+    and the extracted block number is this leaf's index value
+    (block_tree/leaf.rs:37-60 — the extraction<->DB binding)."""
+    from mp2_tpu_torch.extraction.final_circuits import F_BN, F_DV, F_MERGE
+
+    rows = _RowsPis.parse(b, foreign[0].public_inputs())
+    ext = foreign[1].public_inputs()
+    index_id, number, is_merge, digest, rows_digest = _block_common(b, rows)
+    # the merge flag is the EXTRACTION proof's, not a free witness
+    b.connect(is_merge, ext[F_MERGE])
+    for a, c in zip(list(ext[F_DV]), curve_to_pi_targets(b, rows_digest)):
+        b.connect(a, c)
+    # extracted block number == leaf index value (low limb; high limbs 0)
+    b.connect(number.limbs[-1], ext[F_BN])
+    for l in number.limbs[:-1]:
+        b.connect(l, b.zero())
+    e = [b.constant(v) for v in EMPTY]
+    h = _row_node_hash_circuit(b, e, e, number, number, index_id, number, rows.h)
+    _block_register(b, h, digest, number, number)
+
+    def assign(inputs, index_id_v, block_number, is_merge_v=False):
+        _assign_block(inputs, (index_id, number, is_merge), index_id_v,
+                      block_number, is_merge_v)
+
+    return assign
+
+
 def _block_parent_body(b, children, rows, index_id, number, is_merge, digest):
     l = _BlockPis.parse(b, children[0].public_inputs())
     r = _BlockPis.parse(b, children[1].public_inputs())
@@ -469,6 +496,33 @@ def _build_block_parent(b, children, foreign):
     children are flagged and replaced by the empty hash / neutral digest."""
     rows = _RowsPis.parse(b, foreign[0].public_inputs())
     index_id, number, is_merge, digest, _ = _block_common(b, rows)
+    has_r = _block_parent_body(
+        b, children, rows, index_id, number, is_merge, digest
+    )
+
+    def assign(inputs, index_id_v, block_number, has_right, is_merge_v=False):
+        _assign_block(inputs, (index_id, number, is_merge), index_id_v,
+                      block_number, is_merge_v)
+        inputs[has_r] = 1 if has_right else 0
+
+    return assign
+
+
+def _build_block_parent_bound(b, children, foreign):
+    """Parent variant with the extraction binding: a block inserted as a
+    PARENT (sbbst topology) also verifies its final-extraction proof and
+    pins DV/block-number/merge flag (block_tree/parent.rs role)."""
+    from mp2_tpu_torch.extraction.final_circuits import F_BN, F_DV, F_MERGE
+
+    rows = _RowsPis.parse(b, foreign[0].public_inputs())
+    ext = foreign[1].public_inputs()
+    index_id, number, is_merge, digest, rows_digest = _block_common(b, rows)
+    b.connect(is_merge, ext[F_MERGE])
+    for a, c in zip(list(ext[F_DV]), curve_to_pi_targets(b, rows_digest)):
+        b.connect(a, c)
+    b.connect(number.limbs[-1], ext[F_BN])
+    for l in number.limbs[:-1]:
+        b.connect(l, b.zero())
     has_r = _block_parent_body(
         b, children, rows, index_id, number, is_merge, digest
     )
@@ -530,14 +584,12 @@ class VerifiableDbCircuits:
     root of the one below in-circuit against that set's digest."""
 
     def __init__(self, config: CircuitConfig, extraction=None, device="cuda"):
-        """`extraction`: the final-extraction circuits that the reference's
-        extraction-bound block members verify; they are not ported, so any
-        value but None raises instead of leaving those members out."""
-        if extraction is not None:
-            raise NotImplementedError(
-                "the extraction-bound block members (block_leaf_bound, "
-                "block_parent_bound) are not ported yet (ROADMAP Queue 1 item 3b)")
+        """`extraction`: an optional FinalExtractionCircuits instance; when
+        given, the block set gains a `block_leaf_bound` member that verifies
+        a final-extraction proof and pins extraction DV == rows digest +
+        block number in-circuit."""
         self.config = config
+        self.extraction = extraction
         self.cells = RecursionFramework(config, NUM_USER_PIS, set_height=2,
                                         device=device)
         self.cells.add_leaf_circuit("cells_leaf", _build_cells_leaf)
@@ -565,9 +617,19 @@ class VerifiableDbCircuits:
         self.block.add_aggregation_circuit(
             "block_leaf", 0, _build_block_leaf, foreign=[self.rows]
         )
+        if extraction is not None:
+            self.block.add_aggregation_circuit(
+                "block_leaf_bound", 0, _build_block_leaf_bound,
+                foreign=[self.rows, extraction.fw],
+            )
         self.block.add_aggregation_circuit(
             "block_parent", 2, _build_block_parent, foreign=[self.rows]
         )
+        if extraction is not None:
+            self.block.add_aggregation_circuit(
+                "block_parent_bound", 2, _build_block_parent_bound,
+                foreign=[self.rows, extraction.fw],
+            )
         self.block.finalize()
 
         self.ivc = RecursionFramework(config, NUM_USER_PIS, set_height=1,

@@ -26,7 +26,7 @@ from mp2_tpu.recursion.tp2_backend import _build_cells_node as jbuild_cells_node
 from mp2_tpu.recursion.tp2_backend import _build_tree_node as jbuild_tree_node
 from mp2_tpu_torch import convert
 from mp2_tpu_torch.field import goldilocks as gl
-from mp2_tpu_torch.prover import fri, ntt
+from mp2_tpu_torch.prover import algebra, batch, fri, ntt
 from mp2_tpu_torch.prover.batch import permutation_count, prove_batch
 from mp2_tpu_torch.prover.config import test_config
 from mp2_tpu_torch.prover.merkle import BatchedMerkleTree, MerkleTree, verify_merkle_proof
@@ -185,6 +185,20 @@ def test_convert_proves_identically(tree_node):
         **_numpy_circuit(tree_node["jdata"]), device="cpu")
     proofs = prove_batch(conv, tree_node["wits"][:1], tree_node["pis"][:1])
     assert proof_sha256(proof_to_dict(proofs[0])) == tree_node["golden"]["proof_sha256"][0]
+
+
+def test_prove_batch_in_small_chunks_is_bit_identical(tree_node, monkeypatch):
+    """prove_batch's memory bounds move no bit: with the quotient in chunks
+    of 32 coset points, its terms weighted a group at a time, the weighted
+    sums and permutation products in slices of 256 elements and every
+    constant-matrix product one row at a time, the proofs equal the golden
+    ones (the sizes the card runs fit one chunk here)."""
+    monkeypatch.setattr(batch, "_QUOTIENT_ELEMS", 64)
+    monkeypatch.setattr(batch, "_SUM_ELEMS", 256)
+    monkeypatch.setattr(algebra, "_PRODUCT_ELEMS", 256)
+    proofs = prove_batch(tree_node["data"], tree_node["wits"], tree_node["pis"])
+    assert [proof_sha256(proof_to_dict(p)) for p in proofs] == \
+        tree_node["golden"]["proof_sha256"]
 
 
 def test_prove_batch_rejects_public_inputs_of_another_length(tree_node):

@@ -236,9 +236,41 @@ def test_ivc_subsequent_rejects_another_metadata_hash():
         data.check_witness(w, bad)
 
 
-def test_extraction_bound_members_are_not_left_out_silently():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        C.VerifiableDbCircuits(test_config(), extraction=object(), device="cpu")
+def test_extraction_bound_members_are_not_left_out_silently(monkeypatch):
+    """VerifiableDbCircuits(config, extraction=fx) declares both bound
+    members, each after its unbound twin (member order decides the set
+    digest) and each verifying the rows set and fx's set; without
+    extraction the block set has the two unbound members only (the
+    declarations are recorded; no circuit is built)."""
+    declared = []
+
+    class Recording:
+        def __init__(self, *args, **kw):
+            self.members = []
+            declared.append(self.members)
+
+        def add_leaf_circuit(self, name, fn, foreign=()):
+            self.members.append((name, fn, 0, list(foreign)))
+
+        def add_aggregation_circuit(self, name, n, fn, foreign=()):
+            self.members.append((name, fn, n, list(foreign)))
+
+        def finalize(self):
+            pass
+
+    monkeypatch.setattr(C, "RecursionFramework", Recording)
+    fx = type("Fx", (), {"fw": object()})()
+    sets = C.VerifiableDbCircuits(test_config(), extraction=fx, device="cpu")
+    block = declared[2]
+    assert [(name, fn, n) for name, fn, n, _ in block] == [
+        ("block_leaf", C._build_block_leaf, 0),
+        ("block_leaf_bound", C._build_block_leaf_bound, 0),
+        ("block_parent", C._build_block_parent, 2),
+        ("block_parent_bound", C._build_block_parent_bound, 2)]
+    for _, _, _, foreign in block[1::2]:
+        assert foreign[0] is sets.rows and foreign[1] is fx.fw
+    C.VerifiableDbCircuits(test_config(), device="cpu")
+    assert [name for name, *_ in declared[-2]] == ["block_leaf", "block_parent"]
 
 
 def test_golden_record_has_the_block_and_ivc_sets():
