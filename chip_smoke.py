@@ -97,7 +97,26 @@ drives these paths:
   (the extraction) and `pipeline_block_proofs_per_s` (the 16 proofs of
   `apply_block`); and every K2c and K1 Merkle entry shape that this path
   feeds, held against its plain twin and timed beside its bound by the main
-  process as the pipeline's process announces it.
+  process as the pipeline's process announces it;
+
+  queries over that block: the same indexer, built with two tabular rows,
+  also builds the query sets over its IVC set (`vdb/query/chunks.QueryCircuits`:
+  the row set with the tree-bound `row` and `row_dummy`, the chunk set with
+  `row_chunk`, `chunk_merge` and `non_existence`, the revelation set with
+  `revelation` and `revelation_tabular`, each verifying the IVC set
+  cross-set), held against `pipeline_golden.json`; after block 101 two
+  `run_query` calls prove two of tests/test_circuit_pipeline.py's queries:
+  an aggregate over blocks [100, 101] (`row_chunk`, `revelation`) and the
+  same over the empty range [200, 210] (`non_existence`, `revelation`).
+  Each revelation is verified and every member proof's public inputs, the
+  revealed values (the computational and placeholder hashes, the IVC
+  proof's block-tree root, the result) and the host result are held
+  against the JAX package's; printed as `pipeline_query_proofs_per_s` (the
+  4 proofs over the two calls' walls); the new kernel shapes are checked
+  as above.  The third query, a tabular DISTINCT ... LIMIT 2 (two `row`
+  proofs, `revelation_tabular`), is proved with the same checks by
+  tests/test_torch_cuda.py::test_pipeline_tabular_query_on_card, which
+  keeps this script inside its time limit on the slower hosts.
 
 Four processes of this script share the card.  The main one starts the
 other three first, which set up their circuit sets on the host (their
@@ -106,8 +125,9 @@ the main one builds the kernels and runs the kernel phases, the tree-node
 batches and their timing, holding the whole card.  After that every step
 that proves takes one of two lanes of the card, which the main process
 grants: the heavy lane runs the row update (`--vdb-light`), then block 101
-through the pipeline (`--extraction`); the block path (`--vdb-light`) has
-a lane of its own; the other lane runs the remaining steps one at a time:
+and the queries through the pipeline (`--extraction`); the block path
+(`--vdb-light`) has a lane of its own; the other lane runs the remaining
+steps one at a time:
 the production recursion (main process), the production vdb chain
 (`--vdb-production`), the light recursion (main process) and the light vdb
 golden chain (`--vdb-light`).  The main process sets up both recursion
@@ -131,6 +151,7 @@ CUDA card; imports no JAX.
 """
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -184,6 +205,7 @@ from mp2_tpu_torch.utils.keccak import keccak256
 from mp2_tpu_torch.utils.u256 import left_pad32, pack_bytes_be
 from mp2_tpu_torch.vdb import circuits as V
 from mp2_tpu_torch.vdb import digests as D
+from mp2_tpu_torch.vdb.query.ops import Placeholders
 from mp2_tpu_torch.vdb.trees import (BlockPayload, Cell, RowPayload, build_cells_tree,
                                      new_block_tree, new_row_tree)
 
@@ -1640,7 +1662,26 @@ def _check_set(name, fw, g, wall):
 
 
 INDEXER_SETS = ("ValuesExtractionCircuits", "ContractExtractionCircuits",
-                "BlockExtractionFramework", "FinalExtractionCircuits", "VerifiableDbCircuits")
+                "BlockExtractionFramework", "FinalExtractionCircuits", "VerifiableDbCircuits",
+                "QueryCircuits")
+PIPELINE_TABULAR_ROWS = 2  # the indexer of tests/test_circuit_pipeline.py
+QUERY_SETS = ("row", "chunk", "revelation")
+_QUERY_RANGE = "block >= $MIN_BLOCK AND block <= $MAX_BLOCK"
+# tests/test_circuit_pipeline.py's three queries after block 101: (name, SQL,
+# placeholders, the member proofs run_query asks for, the result rows)
+PIPELINE_QUERIES = (
+    ("aggregate", f"SELECT SUM(value), COUNT(*) FROM t WHERE {_QUERY_RANGE}",
+     {"$MIN_BLOCK": 100, "$MAX_BLOCK": 101}, ["row_chunk", "revelation"], [[400, 3]]),
+    ("empty_range", f"SELECT SUM(value), COUNT(*) FROM t WHERE {_QUERY_RANGE}",
+     {"$MIN_BLOCK": 200, "$MAX_BLOCK": 210}, ["non_existence", "revelation"], [[0, 0]]),
+    ("tabular", f"SELECT DISTINCT value FROM t WHERE {_QUERY_RANGE} AND value >= 150 LIMIT 2",
+     {"$MIN_BLOCK": 100, "$MAX_BLOCK": 101}, ["row", "row", "revelation_tabular"],
+     [[150], [200]]),
+)
+# the script proves the first two; the tabular query is proved by
+# tests/test_torch_cuda.py::test_pipeline_tabular_query_on_card, which keeps
+# the script inside its time limit on the slower hosts
+SCRIPT_QUERIES = PIPELINE_QUERIES[:2]
 
 
 @contextlib.contextmanager
@@ -1669,14 +1710,16 @@ def _timed_sets(walls):
 
 def phase_pipeline_setup(card, dev, cfg, block, xgolden, fgolden, vgolden, pgolden):
     """CircuitTableIndexer for the pipeline's mapping table at test_config()
-    and its sets, built through _ensure_built on block 101's header as
-    mp2_tpu/models/circuit_pipeline.py:128-154 builds them (without the query
-    circuits): the values, contract, block and final extraction sets against
+    with two tabular rows (tests/test_circuit_pipeline.py's indexer) and its
+    sets, built through _ensure_built on block 101's header as
+    mp2_tpu/models/circuit_pipeline.py:128-154 builds them: the values,
+    contract, block and final extraction sets against
     testdata/{extraction,final_extraction}_golden.json, the verifiable DB's
-    cells and rows sets against vdb_golden.json's light ones, and its block
-    set (with block_leaf_bound and block_parent_bound over the final set) and
-    IVC set against pipeline_golden.json, each written by the JAX package.
-    Returns the indexer."""
+    cells and rows sets against vdb_golden.json's light ones, its block set
+    (with block_leaf_bound and block_parent_bound over the final set) and IVC
+    set, and the query sets over the IVC set (row, chunk, revelation)
+    against pipeline_golden.json, each written by the JAX package.  Returns
+    the indexer."""
     host = fgolden["host"]
     if ([cfg.key_id, cfg.value_id] != [xgolden["table"]["key_id"], xgolden["table"]["value_id"]]
             or cfg.block_id != host["table"]["block_id"]):
@@ -1684,7 +1727,15 @@ def phase_pipeline_setup(card, dev, cfg, block, xgolden, fgolden, vgolden, pgold
     offsets = fixture_header_offsets(block.header_rlp)
     if block.header_rlp.hex() != host["header_rlp"] or offsets != host["header_offsets"]:
         _fail("pipeline: block 101's header or its offsets differ from the JAX package's")
-    ix = CircuitTableIndexer(cfg, config=test_config(), device=dev)
+    ix = CircuitTableIndexer(cfg, config=test_config(), tabular_rows=PIPELINE_TABULAR_ROWS,
+                             device=dev)
+    qp = pgolden["query"]["params"]
+    if (dataclasses.asdict(ix.query_params)
+            != {k: v for k, v in qp.items() if k not in ("row_tree_depth", "index_tree_depth",
+                                                         "tabular_rows")}
+            or [ix.row_tree_depth, ix.index_tree_depth, ix.tabular_rows]
+            != [qp["row_tree_depth"], qp["index_tree_depth"], qp["tabular_rows"]]):
+        _fail("pipeline: the indexer's query parameters differ from the JAX package's")
     walls = {}
     t0, c0 = time.perf_counter(), time.process_time()
     with _timed_sets(walls):
@@ -1709,6 +1760,12 @@ def phase_pipeline_setup(card, dev, cfg, block, xgolden, fgolden, vgolden, pgold
     for name in ("block", "ivc"):
         _check_set(f"pipeline vdb {name}", getattr(ix.vdb, name), pgolden["sets"][name],
                    walls["VerifiableDbCircuits"])
+    print(f"pipeline query sets (test_config, over the IVC set, tree depth "
+          f"{ix.row_tree_depth}, {ix.tabular_rows} tabular rows): built and finalized in "
+          f"{walls['QueryCircuits']:.3f} s")
+    for name in QUERY_SETS:
+        _check_set(f"pipeline query {name}", getattr(ix.qc, name), pgolden["query"][name],
+                   walls["QueryCircuits"])
     return ix
 
 
@@ -1817,7 +1874,7 @@ def _step_marks(ix, marks):
         del ix.vx.prove_trie
 
 
-def phase_pipeline_block(card, ix, cfg, block, xgolden, fgolden, pgolden, launches):
+def phase_pipeline_block(card, ix, cfg, block, xgolden, fgolden, pgolden, launches, shapes):
     """Block 101 through CircuitTableIndexer.apply_block as the indexer's
     first block (mp2_tpu/models/circuit_pipeline.py:182-340): its extraction
     (the storage trie through prove_trie, on the default path, then the
@@ -1833,7 +1890,7 @@ def phase_pipeline_block(card, ix, cfg, block, xgolden, fgolden, pgolden, launch
     root, block_leaf_bound and ivc_first verified, their PIs against the
     host models (rows_pi_values, block_pi_values, ivc_pi_values) and the
     JAX package's, the rows digest against final_simple's DV.  Each kernel
-    shape the path feeds is announced (_ShapeLog)."""
+    shape the path feeds is announced (`shapes`, a _ShapeLog)."""
     g_trie = xgolden["trie"]
     if block.storage.root_hash().hex() != g_trie["root_hash"]:
         _fail("pipeline: block 101's trie has another root than the JAX package's")
@@ -1861,7 +1918,7 @@ def phase_pipeline_block(card, ix, cfg, block, xgolden, fgolden, pgolden, launch
     os.environ.pop("MP2_BATCH_LEAVES", None)  # the default path: one proof per trie node
     os.environ["MP2_TRACE"] = "1"  # the runtime's spans, one stderr line each
     _reset_counts()
-    with _StageLog() as log, _ShapeLog(), _member_log(fws, members, envs), \
+    with _StageLog() as log, shapes, _member_log(fws, members, envs), \
             _step_marks(ix, marks):
         t0, c0 = time.perf_counter(), time.process_time()
         final_env = ix.apply_block(block)
@@ -1984,6 +2041,84 @@ def phase_pipeline_block(card, ix, cfg, block, xgolden, fgolden, pgolden, launch
     _print_members("pipeline block 101", members, log, wall)
 
 
+def _query_result_record(res):
+    """A QueryResult as the golden record holds it."""
+    return {"rows": [[int(v) for v in r] for r in res.rows],
+            "num_matching_rows": int(res.num_matching_rows), "overflow": bool(res.overflow),
+            "computational_hash": [int(v) for v in res.computational_hash],
+            "placeholder_hash": [int(v) for v in res.placeholder_hash],
+            "chunks": [[list(k) for k in c] for c in res.chunks]}
+
+
+def phase_pipeline_queries(card, ix, pgolden, launches, shapes, queries=SCRIPT_QUERIES):
+    """`queries` of tests/test_circuit_pipeline.py (PIPELINE_QUERIES) through
+    CircuitTableIndexer.run_query after block 101 (mp2_tpu/models/
+    circuit_pipeline.py:341-435): the aggregate over blocks [100, 101] (one
+    row_chunk of block 101's three rows, then revelation), the same over the
+    empty range [200, 210] (non_existence over the block tree, then
+    revelation) and the tabular DISTINCT ... LIMIT 2 (two tree-bound row
+    proofs, then revelation_tabular); each member proof a batch of one,
+    wrapped; each call timed on the host clock to a card sync.  Checked:
+    each revelation verified by ix.verify, its member, its revealed values
+    (the computational and placeholder hashes, the IVC proof's block-tree
+    root, the result) and every member proof's PIs against the JAX
+    package's (pipeline_golden.json), the QueryResult against the JAX
+    package's, the revealed block root against ivc_first's.  Each kernel
+    shape the path feeds that block 101's did not is announced."""
+    g_all = pgolden["query"]["block_101_first"]
+    fws = {name: getattr(ix.qc, name) for name in QUERY_SETS}
+    members, envs, calls = [], [], []
+    _reset_counts()
+    with _StageLog() as log, shapes, _member_log(fws, members, envs):
+        for name, sql, values, _, _ in queries:
+            first = len(members)
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.process_time()
+            res, env, reveal = ix.run_query(sql, Placeholders(dict(values)))
+            torch.cuda.synchronize()
+            calls.append((name, res, env, reveal, first, len(members),
+                          time.perf_counter() - t0, time.process_time() - c0))
+    _read_counts(f"pipeline queries (run_query x{len(queries)})", launches)
+    stages = _member_stages("pipeline queries", members, log)
+    ivc_root = ix.ivc_env.user_inputs[0:4]
+    for (name, sql, values, want_members, want_rows), call in zip(queries, calls,
+                                                                  strict=True):
+        _, res, env, reveal, a, b, wall, cpu = call
+        g = g_all[name]
+        proved = [m["member"] for m in members[a:b]]
+        if proved != want_members:
+            _fail(f"pipeline query {name}: run_query proved {proved}, not {want_members}")
+        if not ix.verify(env) or env.member != g["member"]:
+            _fail(f"pipeline query {name}: the revelation ({env.member}) was rejected or is "
+                  f"not the JAX package's {g['member']}")
+        got = [(m["set"], m["member"], [int(v) for v in e.user_inputs])
+               for m, (_, _, e) in zip(members[a:b], envs[a:b])]
+        if got != [(c["set"], c["member"], c["user_pis"]) for c in g["calls"]]:
+            _fail(f"pipeline query {name}: a member proof's PIs differ from the JAX package's")
+        if ([int(v) for v in reveal] != g["reveal"] or list(env.user_inputs) != g["reveal"]
+                or env.public_inputs[-4:] != list(ix.qc.revelation.set_digest)):
+            _fail(f"pipeline query {name}: the revealed PIs differ from the JAX package's")
+        if reveal[8:12] != ivc_root:
+            _fail(f"pipeline query {name}: the revealed block root is not ivc_first's")
+        if _query_result_record(res) != g["result"] or res.rows != want_rows:
+            _fail(f"pipeline query {name}: the result {res.rows} differs from the JAX "
+                  f"package's")
+        own = stages[a:b]
+        pb = sum(st["s"] for st_m in own for st in st_m)
+        wit = sum(m["witness_s"] for m in members[a:b])
+        print(f"pipeline query {name}: {sql!r} with {values}: rows {res.rows}; "
+              f"{len(proved)} member proofs ({', '.join(proved)}), each wrapped, in "
+              f"{wall:.3f} s ({cpu:.3f} s of this process's CPU): prove_batch {pb:.3f} s, "
+              f"witness generation {wit:.3f} s, other {wall - pb - wit:.3f} s; {env.member} "
+              f"verified, every member's PIs, the revealed values (block root "
+              f"{reveal[8]:#x}... = ivc_first's) and the result equal to the JAX package's")
+    total = sum(c[6] for c in calls)
+    print(f"pipeline_query_proofs_per_s {len(members) / total:.4f} ({len(members)} member "
+          f"proofs / {total:.3f} s summed wall of {len(queries)} run_query call(s), wraps "
+          f"included); {card}")
+    _print_members("pipeline queries", members, log, total)
+
+
 def _shape_bound(entry, spec):
     """(least ms, what bounds it) of one recorded entry call, counted as the
     kernel phases count them: K2c's transform and entries by `_k2c_work`
@@ -2015,6 +2150,32 @@ def _shape_from_json(text):
     return tuple(tuple(a) if isinstance(a, list) else a for a in json.loads(text))
 
 
+def check_shape(card, key, rng, dev):
+    """One announced entry shape (SHAPE_MARK's key) on random input against
+    its plain twin, bit for bit, timed (the plain twin once) beside its
+    bound.  Returns (kernel, label, times, max_abs_err)."""
+    entry, *spec = key
+    kernel, plain = SHAPE_ENTRIES[entry]
+    args = [_rand_rows(rng, a, dev) if isinstance(a, tuple) else a for a in spec]
+    want, p_ms = _timed_once(lambda: plain(*args))
+    got = kernel(*args)
+    got, want = (got, want) if isinstance(got, list) else ([got], [want])
+    err = 0
+    for a, b in zip(got, want, strict=True):
+        err = max(err, _max_abs_err(a, b))
+        if not torch.equal(a, b):
+            _fail(f"{entry} disagrees with its plain twin at {spec}")
+    del got, want
+    k_ms = _time_ms(lambda: kernel(*args), 5)
+    del args
+    bound_ms, bound_by = _shape_bound(entry, spec)
+    print(f"pipeline shape {entry} {spec}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), identical; {card}", flush=True)
+    kernel_name = "K1" if entry in ("hash_leaves", "merkle_levels") else "K2c"
+    return kernel_name, f"{entry} {spec}", {"ms": k_ms, "plain_ms": p_ms,
+                                            "bound_ms": bound_ms, "bound_by": bound_by}, err
+
+
 def phase_pipeline_shapes(card, helper, lanes):
     """Every K2c and K1 Merkle entry shape that the pipeline's path fed, as
     the pipeline process announces them (SHAPE_MARK lines), held against its
@@ -2035,25 +2196,9 @@ def phase_pipeline_shapes(card, helper, lanes):
         if key is None:
             break
         n += 1
-        entry, *spec = key
-        kernel, plain = SHAPE_ENTRIES[entry]
-        args = [_rand_rows(rng, a, dev) if isinstance(a, tuple) else a for a in spec]
-        want, p_ms = _timed_once(lambda: plain(*args))
-        got = kernel(*args)
-        got, want = (got, want) if isinstance(got, list) else ([got], [want])
-        for a, b in zip(got, want, strict=True):
-            err = max(err, _max_abs_err(a, b))
-            if not torch.equal(a, b):
-                _fail(f"{entry} disagrees with its plain twin at {spec}")
-        del got, want
-        k_ms = _time_ms(lambda: kernel(*args), 5)
-        del args
-        bound_ms, bound_by = _shape_bound(entry, spec)
-        kernel_name = "K1" if entry in ("hash_leaves", "merkle_levels") else "K2c"
-        times.setdefault(kernel_name, {})[f"{entry} {spec}"] = {
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"pipeline shape {entry} {spec}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}), identical; {card}", flush=True)
+        kernel_name, label, rec, e = check_shape(card, key, rng, dev)
+        err = max(err, e)
+        times.setdefault(kernel_name, {})[label] = rec
     if n == 0:
         _fail("the pipeline process announced no kernel shape")
     print(f"pipeline path: {n} K2c and K1 Merkle entry shapes held against their plain "
@@ -2076,7 +2221,7 @@ LANE_MARK = "@card"  # a helper's request for a lane and its release, one line e
 # the pipeline, whose process holds the most sets (~14 GiB) and whose set-up
 # ends last; the block path ("B") starts after the row update, beside the
 # pipeline's set-up; the other lane ("O") runs the remaining steps
-HEAVY_ORDER = ("vdb row update", "pipeline block 101")
+HEAVY_ORDER = ("vdb row update", "pipeline block 101 and queries")
 BLOCK_ORDER = ("vdb block tree + IVC",)
 OTHER_ORDER = ("recursion production", "vdb production chain", "recursion light",
                "vdb light golden chain")
@@ -2330,17 +2475,20 @@ def vdb_production_process(card, dev, golden):
 def extraction_process(card, dev, xgolden, fgolden, vgolden, pgolden):
     """The pipeline (EXTRACTION_FLAG): CircuitTableIndexer's sets set up
     beside the kernel phases, then on the heavy lane block 101 through
-    apply_block, announcing each kernel shape it feeds for the main process
-    to check.  The last line is the path's launch counts."""
+    apply_block and the three queries through run_query, announcing each
+    kernel shape they feed for the main process to check.  The last line is
+    the paths' launch counts."""
     launches = {}
     cfg, chain = _pipeline_chain()
     block = chain[-1]
     ix = _phase("pipeline set-up", phase_pipeline_setup, card, dev, cfg, block, xgolden,
                 fgolden, vgolden, pgolden)
     _settled()
+    shapes = _ShapeLog()
     with _lane("H", HEAVY_ORDER[1]):
         _phase("pipeline block 101", phase_pipeline_block, card, ix, cfg, block, xgolden,
-               fgolden, pgolden, launches)
+               fgolden, pgolden, launches, shapes)
+        _phase("pipeline queries", phase_pipeline_queries, card, ix, pgolden, launches, shapes)
     print(json.dumps({"launches": launches}))
 
 

@@ -1,5 +1,5 @@
 """Circuit-driven end-to-end pipeline: the TableIndexer flow with REAL
-proofs at every stage, its indexing half.
+proofs at every stage.
 
 Where `mp2_tpu/models/pipeline.TableIndexer` drives the host-golden
 extraction model with attestation envelopes, this indexer drives the actual
@@ -16,20 +16,25 @@ circuit families:
     node uses the `_bound` member pinning extraction DV == rows digest and
     extracted block number == leaf index (block_tree/mod.rs:37-60);
   * IVC chain verifying the previous IVC proof + the block root proof
-    (ivc/api.rs).
+    (ivc/api.rs);
+  * queries through the TREE-BOUND universal query stack: row proofs walk
+    Merkle paths into the committed rows/index trees, chunks enforce the
+    consecutive-rows completeness argument, and the revelation proof binds
+    the chunk root to the IVC proof
+    (query/row_chunk_processing.rs, revelation_without_results_tree.rs).
 
-A jax-free copy of the indexing half of `mp2_tpu/models/circuit_pipeline.py`:
-only the imports change, and the circuit sets are built for the device the
-indexer is given (`device="cuda"` unless the caller asks for the CPU).  The
-query half waits for ROADMAP Queue 1 item 4 (`parsil`, `vdb/query`): the
-indexer keeps no query view (`table_data`), builds no query circuits (`qc`),
-only stores `query_params`, and `run_query`, `verify` and `_select_tabular`
-raise.  `MergedTableIndexer` waits for `final_merge` (item 3b.2).
+The result of `run_query` is ONE proof an outside verifier can check
+against the query + the table's verification keys.
+
+A jax-free copy of `mp2_tpu/models/circuit_pipeline.py`: only the imports
+change, and the circuit sets are built for the device the indexer is given
+(`device="cuda"` unless the caller asks for the CPU).  `MergedTableIndexer`
+waits for `final_merge` (ROADMAP Queue 1 item 3b.2).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 from mp2_tpu_torch.extraction import storage_key as SK
 from mp2_tpu_torch.extraction import values as V
@@ -45,11 +50,22 @@ from mp2_tpu_torch.extraction.mpt_circuits import ValuesExtractionCircuits
 from mp2_tpu_torch.field.ecgfp5 import Point
 from mp2_tpu_torch.models.pipeline import BlockFixture, IvcOutput, MappingTableConfig
 from mp2_tpu_torch.models.proof_store import MemoryProofStore, ProofDict
+from mp2_tpu_torch.parsil.assembler import parse_and_assemble
 from mp2_tpu_torch.prover.config import CircuitConfig, test_config
 from mp2_tpu_torch.recursion.runtime import WrappedEnvelope
 from mp2_tpu_torch.vdb import circuits as C
 from mp2_tpu_torch.vdb import digests as D
 from mp2_tpu_torch.vdb.circuits import VerifiableDbCircuits
+from mp2_tpu_torch.vdb.query.api import (
+    Placeholders,
+    QueryResult,
+    TableData,
+    execute_query,
+)
+from mp2_tpu_torch.vdb.query.chunks import QueryCircuits, make_row_binding
+from mp2_tpu_torch.vdb.query.merkle_path import host_neighbor_path_from_tree
+from mp2_tpu_torch.vdb.query.planner import find_node_for_non_existence
+from mp2_tpu_torch.vdb.query.universal import UniversalQueryParams
 from mp2_tpu_torch.vdb.trees import (
     BlockPayload,
     Cell,
@@ -59,19 +75,16 @@ from mp2_tpu_torch.vdb.trees import (
     new_row_tree,
 )
 
-_QUERY_SIDE = ("the query side (parsil, vdb/query) is not ported yet "
-               "(ROADMAP Queue 1 item 4)")
-
 
 class CircuitTableIndexer:
-    """Extraction -> rows tree -> block tree -> IVC with real proofs (the
-    reference's `TableIndexing::run` loop)."""
+    """Extraction -> rows tree -> block tree -> IVC -> query with real
+    proofs (the reference's `TableIndexing::run` + `prove_query` loop)."""
 
     def __init__(
         self,
         cfg: MappingTableConfig,
         config: Optional[CircuitConfig] = None,
-        query_params=None,
+        query_params: Optional[UniversalQueryParams] = None,
         row_tree_depth: int = 4,
         index_tree_depth: int = 4,
         branch_arities=(1, 2, 3),
@@ -81,16 +94,20 @@ class CircuitTableIndexer:
     ):
         self.cfg = cfg
         self.config = config or test_config()
-        self.query_params = query_params
+        self.query_params = query_params or UniversalQueryParams(
+            num_columns=3, num_placeholders=4, num_predicate_ops=4,
+            num_result_ops=2, num_outputs=2,
+        )
         self.row_tree_depth = row_tree_depth
         self.index_tree_depth = index_tree_depth
         self.branch_arities = tuple(branch_arities)
         self.tabular_rows = tabular_rows
-        self.device = device
         self.column_ids = [cfg.block_id, cfg.key_id, cfg.value_id]
+        self.device = device
 
         self.rows_db = new_row_tree()
         self.block_db = new_block_tree()
+        self.table_data = TableData(cfg.schema())
 
         # proof stores (ProofKV role, proof_storage.rs): latest envelope
         # per tree node, the rows ROOT envelope per epoch (ancestor
@@ -135,6 +152,12 @@ class CircuitTableIndexer:
         )
         self.vdb = VerifiableDbCircuits(self.config, extraction=self.fx,
                                         device=self.device)
+        self.qc = QueryCircuits(
+            self.config, self.query_params, ivc_framework=self.vdb.ivc,
+            row_tree_depth=self.row_tree_depth,
+            index_tree_depth=self.index_tree_depth,
+            tabular_rows=self.tabular_rows, device=self.device,
+        )
         self._built = True
 
     # -- per block --------------------------------------------------------
@@ -159,6 +182,10 @@ class CircuitTableIndexer:
     def _row_cells(self, blk: BlockFixture, key: bytes, value: int):
         """Non-indexed cells of one row."""
         return [Cell(self.cfg.value_id, value, False)]
+
+    def _row_values(self, blk: BlockFixture, key: bytes, value: int):
+        """Materialized query-view row."""
+        return [blk.number, int.from_bytes(key, "big"), value]
 
     def apply_block(self, blk: BlockFixture) -> WrappedEnvelope:
         cfg = self.cfg
@@ -245,12 +272,14 @@ class CircuitTableIndexer:
             metadata_hash=md,
         )
 
-        # 5. row bookkeeping (the reference also fills its query view here)
+        # 5. materialized query view + row bookkeeping
         self.rows_of_block[blk.number] = dict(blk.entries)
         self._fixture_of: Dict[int, BlockFixture] = getattr(
             self, "_fixture_of", {}
         )
         self._fixture_of[blk.number] = blk
+        for k, v in blk.entries.items():
+            self.table_data.add_row(blk.number, self._row_values(blk, k, v))
         return final_env
 
     def _prove_rows_plan(self, plan):
@@ -318,11 +347,96 @@ class CircuitTableIndexer:
             self.block_node_env[key] = env
 
     # -- query --------------------------------------------------------------
-    def run_query(self, sql, ph):
-        raise NotImplementedError(_QUERY_SIDE)
+    def run_query(
+        self, sql: str, ph: Placeholders
+    ) -> Tuple[QueryResult, WrappedEnvelope, List[int]]:
+        """Prove the query through the tree-bound stack.  Returns the host
+        result, the revelation envelope, and its public-input values."""
+        assert self.ivc_env is not None, "no epochs indexed"
+        pis = parse_and_assemble(sql, self.cfg.schema())
+        res = execute_query(pis, self.table_data, ph)
+        bounds = pis.bounds.resolve(ph)
+        values = dict(ph.values)
+        values.setdefault("$MIN_BLOCK", bounds.min_block)
+        values.setdefault("$MAX_BLOCK", bounds.max_block)
+        ph = Placeholders(values)
+
+        rows: List[List[int]] = []
+        bindings = []
+        for bn in sorted(self.rows_of_block):
+            if not bounds.min_block <= bn <= bounds.max_block:
+                continue
+            view = self.rows_db.view_at(self.epoch_of[bn])
+            entries = self.rows_of_block[bn]
+            for k in sorted(entries, key=lambda kk: int.from_bytes(kk, "big")):
+                kv = int.from_bytes(k, "big")
+                rows.append(
+                    self._row_values(self._fixture_of[bn], k, entries[k])
+                )
+                bindings.append(
+                    make_row_binding(view, (kv, 0), self.block_db, bn)
+                )
+
+        if not pis.is_aggregation:
+            sel = self._select_tabular(pis, ph, rows, bindings)
+            env, reveal = self.qc.prove_query_tabular(
+                pis, self.column_ids, [r for r, _ in sel], ph, bounds,
+                ivc_env=self.ivc_env, bindings=[bi for _, bi in sel],
+            )
+            return res, env, reveal
+
+        if rows:
+            env, reveal = self.qc.prove_query(
+                pis, self.column_ids, rows, ph, bounds,
+                ivc_env=self.ivc_env, bindings=bindings,
+            )
+        else:
+            ne = find_node_for_non_existence(
+                self.block_db, bounds.min_block, bounds.max_block
+            )
+            assert ne is not None, "block tree is empty"
+            index_w = host_neighbor_path_from_tree(self.block_db, ne.node_key)
+            env, reveal = self.qc.prove_query(
+                pis, self.column_ids, [], ph, bounds,
+                ivc_env=self.ivc_env,
+                non_existence_witness=(self.cfg.block_id, index_w),
+            )
+        return res, env, reveal
 
     def _select_tabular(self, pis, ph, rows, bindings):
-        raise NotImplementedError(_QUERY_SIDE)
+        """Mirror api.execute_query's tabular result shaping (order/
+        DISTINCT/OFFSET/LIMIT) while carrying each result's source row +
+        Merkle binding, so the revealed circuit rows line up with the host
+        answer."""
+        from mp2_tpu_torch.vdb.query.ops import eval_predicate, eval_result_row
+
+        cand = []
+        for row, bi in zip(rows, bindings):
+            ok, _ = eval_predicate(pis.predicate_ops, row, ph)
+            if not ok:
+                continue
+            out, _ = eval_result_row(pis.result, row, ph)
+            cand.append((out, row, bi))
+        if pis.order_by is not None:
+            j, direction = pis.order_by
+            cand.sort(key=lambda t: t[0][j], reverse=(direction == "DESC"))
+        if pis.result.distinct:
+            seen = set()
+            uniq = []
+            for t in cand:
+                k = tuple(t[0])
+                if k not in seen:
+                    seen.add(k)
+                    uniq.append(t)
+            cand = sorted(uniq, key=lambda t: tuple(t[0]))
+        if pis.offset:
+            cand = cand[pis.offset :]
+        if pis.limit is not None:
+            cand = cand[: pis.limit]
+        assert len(cand) <= self.tabular_rows, (
+            "result set exceeds the tabular revelation width; add LIMIT"
+        )
+        return [(row, bi) for _, row, bi in cand]
 
     def verify(self, env: WrappedEnvelope) -> bool:
-        raise NotImplementedError(_QUERY_SIDE)
+        return self.qc.verify(env)

@@ -4,11 +4,11 @@ The part of `mp2_tpu/models/pipeline.py` that the circuit-driven indexer
 (`models.circuit_pipeline.CircuitTableIndexer`) needs: the circuit names,
 `MappingTableConfig` (a table extracted from one mapping slot), the fixture
 chain `make_chain` builds (each block's storage trie, state trie and RLP
-header) and `IvcOutput`.  A jax-free copy in which only the imports change.
+header), the table's query schema (`MappingTableConfig.schema()`) and
+`IvcOutput`.  A jax-free copy in which only the imports change.
 
-Not ported yet: `MappingTableConfig.schema()` needs `parsil.symbols` (ROADMAP
-Queue 1 item 4) and raises; `MergedTableConfig` comes with `final_merge`
-(item 3b.2); the host-golden `TableIndexer` with item 5.
+Not ported yet: `MergedTableConfig` comes with `final_merge` (ROADMAP Queue 1
+item 3b.2); the host-golden `TableIndexer` with item 5.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from mp2_tpu_torch.extraction import storage_key as SK
 from mp2_tpu_torch.extraction import values as V
 from mp2_tpu_torch.extraction.columns import simple_column
+from mp2_tpu_torch.parsil.symbols import ZkColumn, ZkTable
 from mp2_tpu_torch.utils import rlp
 from mp2_tpu_torch.utils.keccak import keccak256
 from mp2_tpu_torch.utils.trie import MPT
@@ -50,10 +51,15 @@ class MappingTableConfig:
         self.block_id = V.identifier_block_column()
         self.column = simple_column(self.slot, self.value_id)
 
-    def schema(self):
-        raise NotImplementedError(
-            "the table's query schema needs parsil.symbols, which is not ported "
-            "yet (ROADMAP Queue 1 item 4)")
+    def schema(self) -> ZkTable:
+        return ZkTable(
+            "t",
+            [
+                ZkColumn("block", self.block_id, "primary_index"),
+                ZkColumn("key", self.key_id, "secondary_index"),
+                ZkColumn("value", self.value_id),
+            ],
+        )
 
 
 @dataclass

@@ -1,5 +1,5 @@
-"""K1, K2 (and its entries), K2c, P1, the batched prover and the fixed-data
-cache on a CUDA card.  These tests skip where there is no card.  The file imports no JAX, so it also runs on a machine without it:
+"""K1, K2 (and its entries), K2c, P1, the batched prover, the fixed-data
+cache and the pipeline's tabular query on a CUDA card.  These tests skip where there is no card.  The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
 """
@@ -276,3 +276,42 @@ def test_keccak_circuit_proved_on_card(cuda, monkeypatch):
     cpu_data, cpu_w = build("cpu")
     assert cpu_data.n == data.n
     np.testing.assert_array_equal(cpu_w, w)
+
+
+@pytest.mark.cuda
+def test_pipeline_tabular_query_on_card(cuda):
+    """tests/test_circuit_pipeline.py's tabular query (SELECT DISTINCT value
+    ... value >= 150 LIMIT 2 over blocks [100, 101]) through
+    CircuitTableIndexer.run_query after block 101, with chip_smoke.py's
+    phases and checks: the indexer's sets (the query sets among them)
+    against the golden records, block 101 through apply_block, then two
+    tree-bound `row` proofs and `revelation_tabular`, verified, every
+    member's PIs, the revealed values and the result [150, 200] equal to
+    the JAX package's; each kernel shape the query feeds that block 101 did
+    not, bit for bit against its plain twin.  chip_smoke.py proves the
+    other two queries; this one runs here to keep the script inside its
+    time limit.  About a quarter of an hour: the set-up and block 101 come
+    first."""
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import chip_smoke as S
+
+    golden = {}
+    for name in ("extraction", "final_extraction", "vdb", "pipeline"):
+        with open(os.path.join(repo, S.TESTDATA, f"{name}_golden.json")) as f:
+            golden[name] = json.load(f)
+    x, fin, v, p = (golden[k] for k in ("extraction", "final_extraction", "vdb", "pipeline"))
+    card = torch.cuda.get_device_name(0)
+    cfg, chain = S._pipeline_chain()
+    ix = S.phase_pipeline_setup(card, cuda, cfg, chain[-1], x, fin, v, p)
+    launches, shapes = {}, S._ShapeLog()
+    S.phase_pipeline_block(card, ix, cfg, chain[-1], x, fin, p, launches, shapes)
+    seen = set(shapes.keys)
+    (tabular,) = [q for q in S.PIPELINE_QUERIES if q not in S.SCRIPT_QUERIES]
+    S.phase_pipeline_queries(card, ix, p, launches, shapes, [tabular])
+    rng = np.random.default_rng(5)
+    for key in sorted(shapes.keys - seen, key=repr):
+        _, _, _, err = S.check_shape(card, key, rng, cuda)
+        assert err == 0

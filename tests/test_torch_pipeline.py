@@ -26,8 +26,11 @@ against the reference:
     block's DV, another block number, a non-zero high limb of the number,
     a merge flag the block does not claim);
   * block 101's host values against testdata/pipeline_golden.json, which
-    the JAX package wrote (tools/make_pipeline_golden.py);
-  * the query side's refusals.
+    the JAX package wrote (tools/make_pipeline_golden.py).
+
+The recording stand-ins here also serve tests/test_torch_query.py and the
+golden tool's `query` part, which add the query sets' stand-ins
+(`_indexer(..., queries=True)`).
 
 The tolerance is 0 everywhere: the outputs are canonical field values,
 digests and byte strings; curve points are compared by their field
@@ -58,6 +61,7 @@ import mp2_tpu.utils.keccak as jkeccak
 import mp2_tpu.utils.u256 as ju256
 import mp2_tpu.vdb.circuits as jvdb
 import mp2_tpu.vdb.digests as jdigests
+import mp2_tpu.vdb.query.chunks as jchunks
 import mp2_tpu_torch.circuit.builder as builder
 import mp2_tpu_torch.extraction.api as api
 import mp2_tpu_torch.extraction.final_circuits as final
@@ -73,6 +77,7 @@ import mp2_tpu_torch.utils.keccak as keccak
 import mp2_tpu_torch.utils.u256 as u256
 import mp2_tpu_torch.vdb.circuits as vdb
 import mp2_tpu_torch.vdb.digests as digests
+import mp2_tpu_torch.vdb.query.chunks as chunks
 import mp2_tpu_torch.vdb.trees as trees
 from mp2_tpu_torch.extraction import values as V
 from mp2_tpu_torch.utils import collector_paused
@@ -81,12 +86,12 @@ PKGS = {
     "port": SimpleNamespace(
         B=builder.CircuitBuilder, cfg=config.test_config, api=api, fin=final, mpt=mpt,
         sk=sk, Point=ecgfp5.Point, cp=circuit_pipeline, pipe=pipeline,
-        store=proof_store, keccak=keccak, u256=u256, vdb=vdb, D=digests,
+        store=proof_store, keccak=keccak, u256=u256, vdb=vdb, D=digests, qc=chunks,
         build=lambda b: b.build("cpu"), device={"device": "cpu"}),
     "ref": SimpleNamespace(
         B=jbuilder.CircuitBuilder, cfg=jconfig.test_config, api=japi, fin=jfinal, mpt=jmpt,
         sk=jsk, Point=jecgfp5.Point, cp=jcircuit_pipeline, pipe=jpipeline,
-        store=jproof_store, keccak=jkeccak, u256=ju256, vdb=jvdb, D=jdigests,
+        store=jproof_store, keccak=jkeccak, u256=ju256, vdb=jvdb, D=jdigests, qc=jchunks,
         build=lambda b: b.build(), device={}),
 }
 SCRIPT_ADDR = bytes(range(20))  # chip_smoke.py's table and the golden files'
@@ -180,10 +185,12 @@ def test_proof_stores_round_trip_as_reference(backend, tmp_path):
 
 
 class _Env:
-    """A stand-in envelope: the index of the call that made it and its PIs."""
+    """A stand-in envelope: the index of the call that made it, its member
+    and its PIs."""
 
-    def __init__(self, index, pis):
-        self.index, self.pis = index, [int(v) for v in pis]
+    def __init__(self, index, member, pis):
+        self.index, self.member, self.pis = index, member, [int(v) for v in pis]
+        self.user_inputs = self.pis
 
 
 def _norm(x):
@@ -206,10 +213,12 @@ def _norm(x):
 
 class _Log:
     def __init__(self):
-        self.calls = []
+        self.calls, self.envs = [], []
 
     def record(self, set_name, member, children, inputs, pis, foreign):
-        env = _Env(len(self.calls), pis)
+        env = _Env(len(self.calls), member, pis)
+        env.children, env.inputs, env.foreign = children, inputs, foreign or []
+        self.envs.append(env)
         self.calls.append({"set": set_name, "member": member, "children": _norm(children),
                            "inputs": _norm(inputs), "pis": env.pis,
                            "foreign": _norm(foreign or [])})
@@ -279,19 +288,38 @@ class _Extraction:
         return env, env.pis
 
 
-@functools.lru_cache(maxsize=None)
-def _indexed(pkg, addr, first):
+TABULAR_ROWS = 2  # tests/test_circuit_pipeline.py's indexer
+
+
+def _query_stand_in(m, ix, log):
+    """The indexer's QueryCircuits with its row, chunk and revelation sets
+    replaced by recording stand-ins: the constructor's fields, no circuit."""
+    qc = object.__new__(m.qc.QueryCircuits)
+    qc.config, qc.params, qc.ivc_framework = ix.config, ix.query_params, None
+    qc.bind, qc.row_tree_depth = ix.row_tree_depth > 0, ix.row_tree_depth
+    qc.index_tree_depth, qc.tabular_rows = ix.index_tree_depth, ix.tabular_rows
+    qc.num_rows_per_chunk, qc.chunk_fanin = 3, 2
+    qc.W = m.qc._pi_width(ix.query_params, qc.bind)
+    for name in ("row", "chunk", "revelation"):
+        setattr(qc, name, _Framework(name, log))
+    return qc
+
+
+def _indexer(pkg, addr, first, queries=False):
     """Both packages' CircuitTableIndexer over the chain from block `first`
-    on, with the stand-ins installed: per block, the log of its calls, the
-    rows digest of its rows root and the indexer's metadata hash."""
+    on, with the stand-ins installed (and the query sets' with `queries`):
+    the indexer, its log, and per block the log of its calls, the rows
+    digest of its rows root and the indexer's metadata hash."""
     m = PKGS[pkg]
     cfg, chain = _chain(pkg, addr)
-    ix = m.cp.CircuitTableIndexer(cfg, **m.device)
+    ix = m.cp.CircuitTableIndexer(cfg, tabular_rows=TABULAR_ROWS, **m.device)
     log = _Log()
     ix.vx = ix.cx = ix.bx = ix.fx = _Extraction(m, cfg, chain, log)
     ix.vdb = object.__new__(m.vdb.VerifiableDbCircuits)  # its prove_cells_tree, no circuit
     for name in VDB_SETS:
         setattr(ix.vdb, name, _Framework(name, log))
+    if queries:
+        ix.qc = _query_stand_in(m, ix, log)
     ix._built = True
     blocks = []
     for blk in chain:
@@ -308,6 +336,12 @@ def _indexed(pkg, addr, first):
                        "final": final_env.pis, "rows_digest": rows_digest.to_fields(),
                        "rows_root_pis": m.vdb.rows_pi_values(root),
                        "metadata_hash": [int(v) for v in ix.metadata_hash]})
+    return ix, log, blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _indexed(pkg, addr, first):
+    _, log, blocks = _indexer(pkg, addr, first)
     return log.calls, blocks
 
 
@@ -495,22 +529,6 @@ def test_bound_leaf_refuses_forged_inputs(case, without_fixed_commitment):
         data, assign, stubs = _bound("block_leaf_bound", pkg)
         with pytest.raises((ValueError, AssertionError)):
             data.check_witness(_witness(data, assign, stubs, args, stub_pis), pis)
-
-
-# ---------------------------------------------------------------------------
-# the query side's refusals
-# ---------------------------------------------------------------------------
-
-
-def test_query_side_raises():
-    cfg, _ = _chain("port", SCRIPT_ADDR)
-    ix = circuit_pipeline.CircuitTableIndexer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ix.run_query("SELECT * FROM t", None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ix.verify(None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        cfg.schema()
 
 
 # ---------------------------------------------------------------------------

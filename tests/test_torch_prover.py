@@ -213,8 +213,8 @@ def test_prove_batch_rejects_public_inputs_of_another_length(tree_node):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (and chip_smoke.py) leaves jax out
-    of sys.modules; the walk reaches the recursion, vdb and extraction slices'
-    modules."""
+    of sys.modules; the walk reaches the recursion, vdb, extraction and query
+    slices' modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mp2_tpu_torch\n"
@@ -237,7 +237,11 @@ def test_port_imports_no_jax():
         "        'extraction.columns', 'extraction.values',\n"
         "        'extraction.column_gadget', 'extraction.mpt_circuits',\n"
         "        'extraction.api', 'extraction.circuits', 'extraction.final_circuits',\n"
-        "        'extraction.metadata']\n"
+        "        'extraction.metadata', 'parsil.errors', 'parsil.ast', 'parsil.symbols',\n"
+        "        'parsil.expand', 'parsil.assembler', 'parsil.validate', 'parsil.isolator',\n"
+        "        'vdb.query.ops', 'vdb.query.api', 'vdb.query.universal',\n"
+        "        'vdb.query.merkle_path', 'vdb.query.chunks', 'vdb.query.planner',\n"
+        "        'circuit.public_inputs', 'models.pipeline', 'models.circuit_pipeline']\n"
         "missing = [m for m in want if 'mp2_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )

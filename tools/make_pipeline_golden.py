@@ -28,14 +28,30 @@ them:
          cells and rows sets are checked equal to vdb_golden.json's light
          ones (they do not depend on the extraction).
 
+  query  the query side of the indexer at tests/test_circuit_pipeline.py's
+         parameters (the default UniversalQueryParams, row and index tree
+         depth 4, two tabular rows): QueryCircuits(test_config(), ...,
+         ivc_framework=<the IVC set of `sets`>), each of its row, chunk
+         and revelation sets with the record `sets` keeps; then block 101
+         applied as the indexer's first block and the flagship test's
+         three queries (an aggregate over [100, 101], the same over the
+         empty range [200, 210], a tabular DISTINCT ... LIMIT 2) through
+         `run_query` over the recording stand-ins of
+         tests/test_torch_pipeline.py: each query's QueryResult and the
+         (set, member, user PIs) of every proof it asks for, in order.
+         The revelation members verify the IVC set only through its set
+         digest, standard shape and set height, so the IVC set enters as
+         those three values, the digest read from the `sets` record.
+
 Nothing is proved: `block_leaf_bound` on the card is held to these public
 inputs, these set digests and the port's own verifier.
 
 Usage (from the repo root; `host` takes seconds, `sets` about half an
-hour on a CPU, most of it the values and final sets; each part rewrites
-only its own key of the file):
+hour on a CPU, most of it the values and final sets, `query` about five
+minutes and needs `sets` first; each part rewrites only its own key of the
+file):
 
-    JAX_PLATFORMS=cpu python tools/make_pipeline_golden.py [host] [sets]
+    JAX_PLATFORMS=cpu python tools/make_pipeline_golden.py [host] [sets] [query]
 """
 
 import fcntl
@@ -225,7 +241,88 @@ def sets():
             "block": _set_record(vdb.block), "ivc": _set_record(vdb.ivc)}
 
 
-PARTS = {"host": host, "sets": sets}
+QUERIES = [
+    ("aggregate", "SELECT SUM(value), COUNT(*) FROM t WHERE block >= $MIN_BLOCK "
+     "AND block <= $MAX_BLOCK", {"$MIN_BLOCK": 100, "$MAX_BLOCK": 101}),
+    ("empty_range", "SELECT SUM(value), COUNT(*) FROM t WHERE block >= $MIN_BLOCK "
+     "AND block <= $MAX_BLOCK", {"$MIN_BLOCK": 200, "$MAX_BLOCK": 210}),
+    ("tabular", "SELECT DISTINCT value FROM t WHERE block >= $MIN_BLOCK AND "
+     "block <= $MAX_BLOCK AND value >= 150 LIMIT 2", {"$MIN_BLOCK": 100, "$MAX_BLOCK": 101}),
+]
+QUERY_PARAMS = {"num_columns": 3, "num_placeholders": 4, "num_predicate_ops": 4,
+                "num_result_ops": 2, "num_outputs": 2}
+TREE_DEPTH = 4
+TABULAR_ROWS = 2
+
+
+def _recorders():
+    """tests/test_torch_pipeline.py, whose stand-ins record what the indexer
+    asks each circuit set to prove."""
+    import importlib.util
+
+    path = os.path.join(REPO, "tests", "test_torch_pipeline.py")
+    spec = importlib.util.spec_from_file_location("_pipeline_recorders", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def query_result_record(res):
+    return {"rows": [_ints(r) for r in res.rows],
+            "num_matching_rows": int(res.num_matching_rows), "overflow": bool(res.overflow),
+            "computational_hash": _ints(res.computational_hash),
+            "placeholder_hash": _ints(res.placeholder_hash),
+            "chunks": [[list(k) for k in c] for c in res.chunks]}
+
+
+def run_queries(rec, pkg):
+    """Block 101 as the first block through `pkg`'s indexer over the
+    recording stand-ins, then the three queries: per query its result,
+    its calls (set, member, user PIs) and the revealed values."""
+    from mp2_tpu.vdb.query.ops import Placeholders as JPlaceholders
+    from mp2_tpu_torch.vdb.query.ops import Placeholders
+
+    ph = {"port": Placeholders, "ref": JPlaceholders}[pkg]
+    ix, log, _ = rec._indexer(pkg, rec.SCRIPT_ADDR, 101, queries=True)
+    out = {}
+    for name, sql, values in QUERIES:
+        start = len(log.calls)
+        res, env, reveal = ix.run_query(sql, ph(dict(values)))
+        out[name] = {"sql": sql, "placeholders": values, "result": query_result_record(res),
+                     "calls": [{"set": c["set"], "member": c["member"], "user_pis": c["pis"]}
+                               for c in log.calls[start:]],
+                     "member": env.member, "reveal": _ints(reveal)}
+    return out
+
+
+def query():
+    from mp2_tpu.prover.config import test_config
+    from mp2_tpu.recursion.wrap import discover_standard
+    from mp2_tpu.vdb.circuits import NUM_USER_PIS
+    from mp2_tpu.vdb.query.chunks import QueryCircuits
+    from mp2_tpu.vdb.query.universal import UniversalQueryParams
+
+    with open(GOLDEN) as f:
+        ivc_rec = json.load(f)["sets"]["ivc"]
+    standard, _ = discover_standard(test_config(), NUM_USER_PIS + 4)
+    assert standard.n == ivc_rec["standard_n"]
+    # what a cross-set verifier reads of the IVC set (recursion/runtime.py
+    # add_aggregation_circuit): a finalized set, its digest, shape, height
+    ivc = type("IvcSet", (), {"circuit_set": True, "set_digest": ivc_rec["set_digest"],
+                              "standard": standard, "set_height": 1})()
+    qc = _timed("query sets", lambda: QueryCircuits(
+        test_config(), UniversalQueryParams(**QUERY_PARAMS), ivc_framework=ivc,
+        row_tree_depth=TREE_DEPTH, index_tree_depth=TREE_DEPTH,
+        tabular_rows=TABULAR_ROWS))
+    queries = _timed("queries", lambda: run_queries(_recorders(), "ref"))
+    return {"params": dict(QUERY_PARAMS, row_tree_depth=TREE_DEPTH,
+                           index_tree_depth=TREE_DEPTH, tabular_rows=TABULAR_ROWS),
+            "row": _set_record(qc.row), "chunk": _set_record(qc.chunk),
+            "revelation": _set_record(qc.revelation),
+            "block_101_first": queries}
+
+
+PARTS = {"host": host, "sets": sets, "query": query}
 
 
 def main(names):
