@@ -116,26 +116,48 @@ drives these paths:
   as above.  The third query, a tabular DISTINCT ... LIMIT 2 (two `row`
   proofs, `revelation_tabular`), is proved with the same checks by
   tests/test_torch_cuda.py::test_pipeline_tabular_query_on_card, which
-  keeps this script inside its time limit on the slower hosts.
+  keeps this script inside its time limit on the slower hosts;
 
-Four processes of this script share the card.  The main one starts the
-other three first, which set up their circuit sets on the host (their
+  a merged table through the proving API: the pipeline's table joined with
+  the total supply in slot 9 (`models/pipeline.MergedTableConfig`,
+  tests/test_merged_table.py's chain), its sets built by
+  `api.build_circuits_params` on block 100's header (the two values sets,
+  the contract and block sets, the final set with `final_simple` and
+  `final_merge`, the verifiable DB's four sets over it), held against the
+  golden files (`merged_golden.json` for the supply's values set, the
+  merged final set and the bound block and IVC sets over it); then block
+  100's extraction through `parallel/workqueue`: a `Coordinator` on
+  127.0.0.1 leases the four child payloads (`values_trie` for the balances
+  and for the supply, `contract`, `block`) to one `WorkerClient` thread
+  whose `prove` is `api.generate_proof`, then the `final_merge` payload
+  built from their serialized results: 9 member proofs (2 `leaf_mapping`,
+  `branch2`, `branch1`; `leaf_single`, `branch1`; `account_leaf`, `block`,
+  `final_merge`).  Every result is accepted by `api.verify_envelope` and a
+  tampered copy refused; the walks' root PIs, the account leaf's and the
+  header's equal the host models' and the JAX package's, and
+  `final_merge`'s equal `final_merge_pi_values` of them and the JAX
+  package's; printed as `merged_extraction_proofs_per_s`, with each new
+  kernel shape checked as above.  Both blocks through `MergedTableIndexer`
+  and the merged query are tests/test_torch_cuda.py::test_merged_table_pipeline_on_card.
+
+Five processes of this script share the card.  The main one starts the
+other four first, which set up their circuit sets on the host (their
 first kernel launch waits until the main one has built the kernels) while
 the main one builds the kernels and runs the kernel phases, the tree-node
 batches and their timing, holding the whole card.  After that every step
-that proves takes one of two lanes of the card, which the main process
+that proves takes one of three lanes of the card, which the main process
 grants: the heavy lane runs the row update (`--vdb-light`), then block 101
-and the queries through the pipeline (`--extraction`); the block path
-(`--vdb-light`) has a lane of its own; the other lane runs the remaining
-steps one at a time:
+and the queries through the pipeline (`--extraction`); the block-path lane
+runs the block path (`--vdb-light`), then the merged table's block 100
+(`--merged`); the other lane runs the remaining steps one at a time:
 the production recursion (main process), the production vdb chain
 (`--vdb-production`), the light recursion (main process) and the light vdb
 golden chain (`--vdb-light`).  The main process sets up both recursion
 frameworks after the timing, the light one first, and checks the
-pipeline's kernel shapes while it proves.  So no other step that proves
-runs beside the kernel phases and the tree-node timing.  `prove_batch`'s
-pieces are bounded so that a 2^16-row proof adds ~9 GiB to its process's
-resident sets, which lets the steps share the card.  The script prints
+pipeline's and the merged path's kernel shapes while they prove.  So no
+other step that proves runs beside the kernel phases and the tree-node
+timing.  `prove_batch`'s pieces are bounded so that a 2^16-row proof adds
+~9 GiB to its process's resident sets, which lets the steps share the card.  The script prints
 each step's times on its clock (asked for its lane, granted it, gave it
 back), each prove_batch's stages' peak card memory, the least free card
 memory it saw, the other processes' output, and fails with them.  Each
@@ -170,24 +192,26 @@ import numpy as np
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import torch  # noqa: E402
 
+from mp2_tpu_torch import api as API
 from mp2_tpu_torch.extraction import api as XA
 from mp2_tpu_torch.extraction import final_circuits as XF
 from mp2_tpu_torch.extraction import metadata as XM
 from mp2_tpu_torch.extraction import storage_key as SK
 from mp2_tpu_torch.extraction.circuits import fixture_header_offsets
-from mp2_tpu_torch.extraction.mpt_circuits import mpt_pi_values
+from mp2_tpu_torch.extraction.mpt_circuits import host_key_nibbles, mpt_pi_values
 from mp2_tpu_torch.field import goldilocks as gl
 from mp2_tpu_torch.field.ecgfp5 import Point
 from mp2_tpu_torch.hash import poseidon2 as p2
 from mp2_tpu_torch.hash import poseidon2_host as p2h
 from mp2_tpu_torch.models import circuit_pipeline as CP
 from mp2_tpu_torch.models.circuit_pipeline import CircuitTableIndexer
-from mp2_tpu_torch.models.pipeline import MappingTableConfig, make_chain
+from mp2_tpu_torch.models.pipeline import MappingTableConfig, MergedTableConfig, make_chain
 from mp2_tpu_torch.ops import _nvcc
 from mp2_tpu_torch.ops import ntt_cuda as N
 from mp2_tpu_torch.ops import ntt_t_cuda as T
 from mp2_tpu_torch.ops import poseidon2_cuda as K
 from mp2_tpu_torch.ops import probe_cuda as PC
+from mp2_tpu_torch.parallel import workqueue as WQ
 from mp2_tpu_torch.parallel.scheduler import MapReduceScheduler
 from mp2_tpu_torch.prover import batch as batch_mod
 from mp2_tpu_torch.prover import merkle, ntt
@@ -1685,27 +1709,28 @@ SCRIPT_QUERIES = PIPELINE_QUERIES[:2]
 
 
 @contextlib.contextmanager
-def _timed_sets(walls):
-    """The wall of each set the indexer builds (a measurement hook of this
-    script only: it wraps the constructors models/circuit_pipeline calls)."""
-    saved = {name: getattr(CP, name) for name in INDEXER_SETS}
+def _timed_sets(walls, module=CP, names=INDEXER_SETS):
+    """The wall of each set that `module` builds, by class, one per build in
+    order (a measurement hook of this script only: it wraps the
+    constructors models/circuit_pipeline or api calls)."""
+    saved = {name: getattr(module, name) for name in names}
 
     def timed(name, cls):
         def build(*args, **kw):
             t0 = time.perf_counter()
             out = cls(*args, **kw)
-            walls[name] = time.perf_counter() - t0
+            walls.setdefault(name, []).append(time.perf_counter() - t0)
             return out
 
         return build
 
     for name, cls in saved.items():
-        setattr(CP, name, timed(name, cls))
+        setattr(module, name, timed(name, cls))
     try:
         yield
     finally:
         for name, cls in saved.items():
-            setattr(CP, name, cls)
+            setattr(module, name, cls)
 
 
 def phase_pipeline_setup(card, dev, cfg, block, xgolden, fgolden, vgolden, pgolden):
@@ -1743,29 +1768,29 @@ def phase_pipeline_setup(card, dev, cfg, block, xgolden, fgolden, vgolden, pgold
     print(f"pipeline: CircuitTableIndexer._ensure_built in {time.perf_counter() - t0:.3f} s "
           f"({time.process_time() - c0:.3f} s of this process's CPU)")
     _check_set("extraction values", ix.vx.fw, xgolden["set"],
-               walls["ValuesExtractionCircuits"])
+               walls["ValuesExtractionCircuits"][0])
     if list(ix.vx.fw.set_digest) != fgolden["sets"]["values_set_digest"]:
         _fail("pipeline: the values set differs from the one the JAX package's final set "
               "verifies")
     for name, fw, cls in (("contract", ix.cx.fw, "ContractExtractionCircuits"),
                           ("block", ix.bx.fw, "BlockExtractionFramework"),
                           ("final", ix.fx.fw, "FinalExtractionCircuits")):
-        _check_set(f"extraction {name}", fw, fgolden["sets"][name], walls[cls])
+        _check_set(f"extraction {name}", fw, fgolden["sets"][name], walls[cls][0])
     print(f"pipeline vdb (test_config, extraction=fx): the four sets built and finalized in "
-          f"{walls['VerifiableDbCircuits']:.3f} s")
+          f"{walls['VerifiableDbCircuits'][0]:.3f} s")
     _vdb_sets("pipeline vdb", ix.vdb, vgolden["light"], ("cells", "rows"))
     if list(ix.fx.fw.set_digest) != pgolden["sets"]["final_set_digest"]:
         _fail("pipeline: the final set differs from the one the JAX package's block set "
               "verifies")
     for name in ("block", "ivc"):
         _check_set(f"pipeline vdb {name}", getattr(ix.vdb, name), pgolden["sets"][name],
-                   walls["VerifiableDbCircuits"])
+                   walls["VerifiableDbCircuits"][0])
     print(f"pipeline query sets (test_config, over the IVC set, tree depth "
           f"{ix.row_tree_depth}, {ix.tabular_rows} tabular rows): built and finalized in "
-          f"{walls['QueryCircuits']:.3f} s")
+          f"{walls['QueryCircuits'][0]:.3f} s")
     for name in QUERY_SETS:
         _check_set(f"pipeline query {name}", getattr(ix.qc, name), pgolden["query"][name],
-                   walls["QueryCircuits"])
+                   walls["QueryCircuits"][0])
     return ix
 
 
@@ -2176,42 +2201,279 @@ def check_shape(card, key, rng, dev):
                                             "bound_ms": bound_ms, "bound_by": bound_by}, err
 
 
-def phase_pipeline_shapes(card, helper, lanes):
-    """Every K2c and K1 Merkle entry shape that the pipeline's path fed, as
-    the pipeline process announces them (SHAPE_MARK lines), held against its
-    plain twin, bit for bit; each timed (the plain twin once) beside its
-    bound.  It runs in the main process while the pipeline proves, until
-    the pipeline process's output ends.  Returns the max_abs_err and the
-    times by kernel."""
+def phase_pipeline_shapes(card, shapes, lanes):
+    """Every K2c and K1 Merkle entry shape that the pipeline's and the
+    merged table's paths fed, as their processes announce them (SHAPE_MARK
+    lines on `shapes`, a queue of (flag, key), then (flag, None) when the
+    process's output ends), each held once against its plain twin, bit for
+    bit, and timed (the plain twin once) beside its bound.  It runs in the
+    main process while the paths prove, until both processes' output ends.
+    Returns the max_abs_err and, per process, the times by kernel of the
+    shapes it announced (the merged path's: those the pipeline's did not)."""
     rng = np.random.default_rng(5)
     dev = torch.device("cuda")
-    err, times, n = 0, {}, 0
-    while True:
+    err, checked, fed, running = 0, {}, {flag: [] for flag in SHAPE_FLAGS}, set(SHAPE_FLAGS)
+    while running:
         try:
-            key = helper.shapes.get(timeout=1.0)
+            flag, key = shapes.get(timeout=1.0)
         except queue.Empty:
             if lanes.failed:
                 _fail(f"{lanes.failed} failed while the main process checked the shapes")
             continue
         if key is None:
-            break
-        n += 1
-        kernel_name, label, rec, e = check_shape(card, key, rng, dev)
-        err = max(err, e)
-        times.setdefault(kernel_name, {})[label] = rec
-    if n == 0:
-        _fail("the pipeline process announced no kernel shape")
-    print(f"pipeline path: {n} K2c and K1 Merkle entry shapes held against their plain "
-          f"twins; max_abs_err {err} (tolerance 0: bit-exact)")
+            running.discard(flag)
+            continue
+        fed[flag].append(key)
+        if key not in checked:
+            checked[key] = check_shape(card, key, rng, dev)
+            err = max(err, checked[key][3])
+    if not fed[EXTRACTION_FLAG] or not fed[MERGED_FLAG]:
+        _fail("the pipeline or the merged process announced no kernel shape")
+    times = {}
+    new = {EXTRACTION_FLAG: fed[EXTRACTION_FLAG],
+           MERGED_FLAG: [k for k in fed[MERGED_FLAG] if k not in fed[EXTRACTION_FLAG]]}
+    for flag, keys in new.items():
+        for key in keys:
+            kernel_name, label, rec, _ = checked[key]
+            times.setdefault(flag, {}).setdefault(kernel_name, {})[label] = rec
+    print(f"pipeline path: {len(fed[EXTRACTION_FLAG])} K2c and K1 Merkle entry shapes; merged "
+          f"path: {len(fed[MERGED_FLAG])}, {len(new[MERGED_FLAG])} of them not the pipeline's "
+          f"({', '.join(checked[k][1] for k in new[MERGED_FLAG]) or 'none'}); all "
+          f"{len(checked)} held against their plain twins, max_abs_err {err} (tolerance 0: "
+          f"bit-exact)")
     torch.cuda.empty_cache()
     return err, times
+
+
+# the merged table of tests/test_merged_table.py:122-135 on the pipeline's
+# contract, chain and mapping slot (the golden files depend on them), its
+# total supply in slot 9: ERC-20 balances {0x11: 100, 0x22: 250} and supply
+# 350 at block 100, {0x11: 120, 0x22: 250} and 370 at block 101.  The script
+# proves block 100's extraction through the API; both blocks through
+# MergedTableIndexer are tests/test_torch_cuda.py::test_merged_table_pipeline_on_card
+MERGED_SINGLE_SLOT = 9
+MERGED_BLOCKS = ({b"\x11": 100, b"\x22": 250}, {b"\x11": 120, b"\x22": 250})
+MERGED_SUPPLY = (350, 370)
+MERGED_ARITIES = (1, 2, 3)  # build_circuits_params's default branch members
+# tests/test_merged_table.py:153-156's query over both blocks: 720 and 370
+MERGED_QUERY = (f"SELECT SUM(value), MAX(supply) FROM t WHERE {_QUERY_RANGE}",
+                {"$MIN_BLOCK": 100, "$MAX_BLOCK": 101})
+# block 100's walks: both balances under one branch under the root, the
+# supply's leaf under the root; then the account leaf, the header and the join
+MERGED_PROOFS = ["leaf_mapping", "leaf_mapping", "branch2", "branch1", "leaf_single",
+                 "branch1", "account_leaf", "block", "final_merge"]
+API_SETS = ("ValuesExtractionCircuits", "ContractExtractionCircuits",
+            "BlockExtractionFramework", "FinalExtractionCircuits", "VerifiableDbCircuits")
+
+
+def _merged_chain():
+    """The merged table's config and blocks 100 and 101."""
+    cfg = MergedTableConfig(PIPELINE_CONTRACT, PIPELINE_CHAIN_ID, PIPELINE_SLOT,
+                            single_slot=MERGED_SINGLE_SLOT)
+    return cfg, make_chain(cfg, MERGED_BLOCKS, single_values=MERGED_SUPPLY)
+
+
+def merged_sets_golden(mgolden, arities=MERGED_ARITIES):
+    """merged_golden.json's set records at `arities`."""
+    return mgolden["sets_" + "_".join(str(a) for a in arities)]
+
+
+def phase_merged_setup(card, dev, cfg, block, xgolden, fgolden, vgolden, mgolden):
+    """The merged table's sets through the API's entry point,
+    api.build_circuits_params on block 100's header at test_config() (as
+    mp2_tpu/api.py:64-103 builds them): the mapping table's values set,
+    the supply's (`vx_b`: leaf_single, extension, branch members), the
+    contract and block sets, the final set with `final_simple` and
+    `final_merge` and the verifiable DB's four sets over it; each held
+    against the JAX package's record (extraction_golden.json,
+    final_extraction_golden.json, vdb_golden.json and merged_golden.json).
+    Returns the PublicParameters."""
+    g = mgolden["host"]["table"]
+    if [cfg.key_id, cfg.value_id, cfg.supply_id, cfg.block_id] != [
+            g[k] for k in ("key_id", "value_id", "supply_id", "block_id")]:
+        _fail("merged: the table's column identifiers differ from the JAX package's")
+    if fixture_header_offsets(block.header_rlp) != fgolden["host"]["header_offsets"]:
+        _fail("merged: block 100's header offsets differ from those of the JAX package's "
+              "block set")
+    walls = {}
+    t0, c0 = time.perf_counter(), time.process_time()
+    with _timed_sets(walls, API, API_SETS):
+        params = API.build_circuits_params(cfg, block.header_rlp, config=test_config(),
+                                           branch_arities=MERGED_ARITIES, device=dev)
+    print(f"merged: api.build_circuits_params in {time.perf_counter() - t0:.3f} s "
+          f"({time.process_time() - c0:.3f} s of this process's CPU), branch arities "
+          f"{MERGED_ARITIES}")
+    gs = merged_sets_golden(mgolden)
+    _check_set("merged values (mapping)", params.vx.fw, gs.get("vx", xgolden["set"]),
+               walls["ValuesExtractionCircuits"][0])
+    _check_set("merged values (single slot)", params.vx_b.fw, gs["vx_b"],
+               walls["ValuesExtractionCircuits"][1])
+    for name, fw, cls in (("contract", params.cx.fw, "ContractExtractionCircuits"),
+                          ("block", params.bx.fw, "BlockExtractionFramework")):
+        _check_set(f"merged extraction {name}", fw, fgolden["sets"][name], walls[cls][0])
+    _check_set("merged final", params.fx.fw, gs["fx"], walls["FinalExtractionCircuits"][0])
+    print(f"merged vdb (test_config, extraction=fx): the four sets built and finalized in "
+          f"{walls['VerifiableDbCircuits'][0]:.3f} s")
+    _vdb_sets("merged vdb", params.vdb, vgolden["light"], ("cells", "rows"))
+    for name in ("block", "ivc"):
+        _check_set(f"merged vdb {name}", getattr(params.vdb, name), gs[name],
+                   walls["VerifiableDbCircuits"][0])
+    return params
+
+
+def _merged_host(cfg, block, h):
+    """Block 100's host models (extract_storage_slots over each walk,
+    extract_contract, extract_block), held against the JAX package's: each
+    walk's root PIs (H, DV, DM, N), the account leaf's and the header's."""
+    keys = sorted(block.entries)
+    a = XA.extract_storage_slots(block.storage, [cfg.column], [
+        XA.SlotEntry(cfg.slot, SK.mapping_location(cfg.slot, k), mapping_key=k,
+                     key_id=cfg.key_id) for k in keys])
+    b = XA.extract_storage_slots(block.storage, [cfg.single_column], [
+        XA.SlotEntry(cfg.single_slot, SK.simple_slot_location(cfg.single_slot))])
+    contract = XA.extract_contract(block.state, cfg.contract_address)
+    out = XA.extract_block(block.header_rlp)
+    host = {"values a": mpt_pi_values(a.node_hash, a.values_digest, a.metadata_digest,
+                                      a.n_leaves),
+            "values b": mpt_pi_values(b.node_hash, b.values_digest, b.metadata_digest,
+                                      b.n_leaves),
+            "contract": XF.contract_pi_values(contract.node_hash, contract.storage_root,
+                                              contract.metadata_digest,
+                                              XF.host_key_nibbles(cfg.contract_address), 0),
+            "block": (pack_bytes_be(out.block_hash) + pack_bytes_be(out.parent_hash)
+                      + pack_bytes_be(out.state_root) + [out.block_number])}
+    if ([host["values a"], host["values b"], host["contract"], host["block"]]
+            != [h["values_a_root"][:31], h["values_b_root"][:31], h["contract"], h["block"]]):
+        _fail("merged: block 100's host models differ from the JAX package's")
+    return host, contract.metadata_digest
+
+
+def _tampered(env_dict):
+    """A copy of a serialized envelope with its first public input changed."""
+    proof = dict(env_dict["proof"])
+    pis = list(proof["public_inputs"])
+    pis[0] = (pis[0] + 1) % gl.P
+    proof["public_inputs"] = pis
+    return {**env_dict, "proof": proof}
+
+
+def phase_merged_api(card, params, cfg, block, mgolden, launches, shapes):
+    """Block 100's extraction through the work queue and the API: a
+    Coordinator on 127.0.0.1 serves the four child payloads (mp2_tpu/api.py's
+    serialized CircuitInput dicts: values_trie for table a, the balances,
+    and table b, the supply; contract; block) to one WorkerClient thread
+    whose prove is api.generate_proof on the card; then the final_merge
+    payload, built from the four serialized results, is added and proved
+    the same way (table a individual, table b the multiplier).  Each member
+    proof a batch of one, wrapped; timed from the first lease to the last
+    completion, on the host clock to a card sync.  Checked: every result
+    accepted by api.verify_envelope and a tampered copy refused; the walks'
+    root PIs (H, DV, DM, N; S = 0), the account leaf's and the header's
+    equal to the host models' and the JAX package's; final_merge's PIs
+    equal to final_merge_pi_values of those PIs and to the JAX package's
+    (merged_golden.json), with its set digest.  Each kernel shape the path
+    feeds is announced (`shapes`, a _ShapeLog)."""
+    h = mgolden["host"]["host_models"][0]
+    host, contract_dm = _merged_host(cfg, block, h)
+    keys = sorted(block.entries)
+    loc = SK.simple_slot_location(cfg.single_slot)
+    payloads = {
+        "values a": {"kind": "values_trie", "paths": [
+            [n.hex() for n in block.storage.get_proof(SK.mapping_location(cfg.slot, k))]
+            for k in keys], "leaf_args": [k.hex() for k in keys]},
+        "values b": {"kind": "values_trie", "table": "b",
+                     "paths": [[n.hex() for n in block.storage.get_proof(loc)]],
+                     "leaf_args": [[int(v) for v in host_key_nibbles(loc)]]},
+        "contract": {"kind": "contract", "proof_nodes": [
+            n.hex() for n in block.state.get_proof(cfg.contract_address)]},
+        "block": {"kind": "block", "header": block.header_rlp.hex()},
+    }
+    q = WQ.WorkQueue(lease_timeout=3600.0)
+    for key, payload in payloads.items():
+        q.add(key, payload["kind"], json.dumps(payload).encode())
+    coordinator = WQ.Coordinator(q)
+    worker = WQ.WorkerClient(coordinator.address, "card")
+    walls = []
+
+    def prove(kind, payload):
+        t0 = time.perf_counter()
+        out = json.dumps(API.generate_proof(params, json.loads(payload))).encode()
+        torch.cuda.synchronize()
+        walls.append((kind, t0, time.perf_counter()))
+        return out
+
+    fws = {"vx": params.vx.fw, "vx_b": params.vx_b.fw, "cx": params.cx.fw,
+           "bx": params.bx.fw, "fx": params.fx.fw}
+    members, envs = [], []
+    drained = []
+    os.environ.pop("MP2_BATCH_LEAVES", None)  # the default path: one proof per trie node
+    _reset_counts()
+    with _StageLog() as log, shapes, _member_log(fws, members, envs), \
+            ThreadPoolExecutor(1) as thread:
+        c0 = time.process_time()
+        drained.append(thread.submit(worker.run, prove).result())
+        res = {k: json.loads(v) for k, v in q.results().items()}
+        final = {"kind": "final_merge", "block": res["block"], "contract": res["contract"],
+                 "table_a": res["values a"], "table_b": res["values b"],
+                 "is_table_a_multiplier": False}
+        q.add("final_merge", "final_merge", json.dumps(final).encode(), list(payloads))
+        drained.append(thread.submit(worker.run, prove).result())
+        t_end, cpu = time.perf_counter(), time.process_time() - c0
+    worker.close()
+    coordinator.close()
+    _read_counts("merged block 100 (api.generate_proof through the work queue)", launches)
+    wall = t_end - walls[0][1]
+    proved = [m["member"] for m in members]
+    if proved != MERGED_PROOFS or drained != [len(payloads), 1] or q.pending():
+        _fail(f"merged: the worker proved {proved} in {drained} leases' rounds, not "
+              f"{MERGED_PROOFS} in [4, 1]")
+
+    res = {k: json.loads(v) for k, v in q.results().items()}
+    for key, d in res.items():
+        if not API.verify_envelope(params, d):
+            _fail(f"merged: api.verify_envelope rejected the {key} result")
+        if API.verify_envelope(params, _tampered(d)):
+            _fail(f"merged: api.verify_envelope accepted a tampered {key} result")
+    env = {k: runtime.WrappedEnvelope.from_dict(d) for k, d in res.items()}
+    for key, fw in (("values a", params.vx.fw), ("values b", params.vx_b.fw)):
+        pis = env[key].user_inputs
+        if (pis[:31] != host[key] or pis[95] != 0
+                or env[key].public_inputs[-4:] != list(fw.set_digest)):
+            _fail(f"merged: the {key} root's PIs are not the host model's H, DV, DM, N with "
+                  f"S = 0 and the set digest")
+    if (env["contract"].user_inputs[:len(host["contract"])] != host["contract"]
+            or env["block"].user_inputs[:len(host["block"])] != host["block"]):
+        _fail("merged: the account leaf's or the header's PIs differ from the host models'")
+    final_pis = env["final_merge"].user_inputs
+    want = XF.final_merge_pi_values(host["block"], host["values a"], host["values b"],
+                                    contract_dm, False)
+    if (final_pis[:len(want)] != want or want != h["final_merge"]
+            or env["final_merge"].public_inputs[-4:] != list(params.fx.fw.set_digest)
+            or final_pis[XF.F_BN] != block.number or want[-2:] != [len(keys) + 1, 1]):
+        _fail("merged: final_merge's PIs are not final_merge_pi_values of the walks', the "
+              "account leaf's and the header's, or not the JAX package's")
+    print(f"merged block 100 through the API: {len(payloads) + 1} payloads leased by a "
+          f"Coordinator on {coordinator.address[0]} to one WorkerClient thread and proved by "
+          f"api.generate_proof ({', '.join(f'{k} {b - a:.3f} s' for k, a, b in walls)}): "
+          f"{len(proved)} member proofs ({', '.join(proved)}), each wrapped; every result "
+          f"accepted by api.verify_envelope and a tampered copy refused; both walks' root "
+          f"PIs (N {env['values a'].user_inputs[30]} and {env['values b'].user_inputs[30]}, "
+          f"S 0), the account leaf's and the header's = the host models' and the JAX "
+          f"package's; final_merge's PIs (block {final_pis[XF.F_BN]}, N "
+          f"{want[-2]}, merge flag {want[-1]}) = final_merge_pi_values and the JAX package's")
+    print(f"merged_extraction_proofs_per_s {len(proved) / wall:.4f} ({len(proved)} member "
+          f"proofs / {wall:.3f} s wall from the first lease to the last completion, wraps "
+          f"included; {cpu:.3f} s of this process's CPU); {card}")
+    _print_members("merged block 100", members, log, wall)
 
 
 # the other processes of this script and the card's lanes
 VDB_LIGHT_FLAG = "--vdb-light"
 VDB_PRODUCTION_FLAG = "--vdb-production"
 EXTRACTION_FLAG = "--extraction"
-HELPERS = (VDB_LIGHT_FLAG, VDB_PRODUCTION_FLAG, EXTRACTION_FLAG)
+MERGED_FLAG = "--merged"
+HELPERS = (VDB_LIGHT_FLAG, VDB_PRODUCTION_FLAG, EXTRACTION_FLAG, MERGED_FLAG)
+SHAPE_FLAGS = (EXTRACTION_FLAG, MERGED_FLAG)  # the helpers that announce kernel shapes
 LANE_MARK = "@card"  # a helper's request for a lane and its release, one line each
 # each lane's steps in the order they run.  Since prove_batch's quotient,
 # FRI combination and constant-matrix products run in bounded pieces, a
@@ -2220,9 +2482,11 @@ LANE_MARK = "@card"  # a helper's request for a lane and its release, one line e
 # them.  The heavy lane ("H") runs the row update, then block 101 through
 # the pipeline, whose process holds the most sets (~14 GiB) and whose set-up
 # ends last; the block path ("B") starts after the row update, beside the
-# pipeline's set-up; the other lane ("O") runs the remaining steps
+# pipeline's set-up, then runs the merged table's block 100 through the API,
+# whose process sets up beside the others; the other lane ("O") runs the
+# remaining steps
 HEAVY_ORDER = ("vdb row update", "pipeline block 101 and queries")
-BLOCK_ORDER = ("vdb block tree + IVC",)
+BLOCK_ORDER = ("vdb block tree + IVC", "merged block 100 through the API")
 OTHER_ORDER = ("recursion production", "vdb production chain", "recursion light",
                "vdb light golden chain")
 LANES = {"H": HEAVY_ORDER, "B": BLOCK_ORDER, "O": OTHER_ORDER}
@@ -2319,12 +2583,12 @@ class _Helper:
     reads its output, asks the card for the lanes it requests and answers
     with a line on its input once granted."""
 
-    def __init__(self, flag, card):
+    def __init__(self, flag, card, shapes):
         here = os.path.dirname(os.path.abspath(__file__))
         self.flag, self.card, self.lines, self.held = flag, card, [], set()
         self.stdin_lock = threading.Lock()
         self.last_line = self.exited = 0.0  # on the script's clock
-        self.shapes = queue.Queue()  # the shapes it announces, then None
+        self.shapes = shapes  # (flag, each shape it announces), then (flag, None)
         self.proc = subprocess.Popen(
             [sys.executable, os.path.join(here, "chip_smoke.py"), flag], cwd=here,
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -2337,7 +2601,7 @@ class _Helper:
             self.lines.append(line)
             self.last_line = time.perf_counter() - self.card.t_start
             if line.startswith(SHAPE_MARK):
-                self.shapes.put(_shape_from_json(line[len(SHAPE_MARK):]))
+                self.shapes.put((self.flag, _shape_from_json(line[len(SHAPE_MARK):])))
             if line.startswith(LANE_MARK):
                 _, verb, lane, step = line.split(maxsplit=3)
                 step = step.strip()
@@ -2348,7 +2612,7 @@ class _Helper:
                 else:
                     self.card.release(lane, step)
                     self.held.discard((lane, step))
-        self.shapes.put(None)
+        self.shapes.put((self.flag, None))
         code = self.proc.wait()
         self.exited = time.perf_counter() - self.card.t_start
         if code != 0:
@@ -2492,6 +2756,24 @@ def extraction_process(card, dev, xgolden, fgolden, vgolden, pgolden):
     print(json.dumps({"launches": launches}))
 
 
+def merged_process(card, dev, xgolden, fgolden, vgolden, mgolden):
+    """The merged table (MERGED_FLAG): its sets set up through
+    api.build_circuits_params beside the kernel phases, then on the block
+    path's lane block 100's extraction through the work queue and
+    api.generate_proof, announcing each kernel shape it feeds for the main
+    process to check.  The last line is the path's launch counts."""
+    launches = {}
+    cfg, chain = _merged_chain()
+    block = chain[0]
+    params = _phase("merged set-up", phase_merged_setup, card, dev, cfg, block, xgolden,
+                    fgolden, vgolden, mgolden)
+    _settled()
+    with _lane("B", BLOCK_ORDER[1]):
+        _phase("merged block 100", phase_merged_api, card, params, cfg, block, mgolden,
+               launches, _ShapeLog())
+    print(json.dumps({"launches": launches}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2506,6 +2788,8 @@ def main():
         fgolden = json.load(f)
     with open(os.path.join(TESTDATA, "pipeline_golden.json")) as f:
         pgolden = json.load(f)
+    with open(os.path.join(TESTDATA, "merged_golden.json")) as f:
+        mgolden = json.load(f)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2522,6 +2806,9 @@ def main():
     if sys.argv[1:] == [EXTRACTION_FLAG]:
         extraction_process(card, dev, xgolden, fgolden, vgolden, pgolden)
         return 0
+    if sys.argv[1:] == [MERGED_FLAG]:
+        merged_process(card, dev, xgolden, fgolden, vgolden, mgolden)
+        return 0
     t_start = time.perf_counter()
     launches = {}
 
@@ -2532,7 +2819,8 @@ def main():
     # commitments' short launches); after them every step that proves takes
     # a lane of the card (see _Card)
     lanes = _Card(t_start, "kernel phases and tree-node timing")
-    helpers = [_Helper(flag, lanes) for flag in HELPERS]
+    shape_queue = queue.Queue()
+    helpers = [_Helper(flag, lanes, shape_queue) for flag in HELPERS]
     memory = _FreeMemory(t_start)
     toolchain = ThreadPoolExecutor(1)
     try:
@@ -2573,8 +2861,8 @@ def main():
                    launches)
             del fw
             torch.cuda.empty_cache()
-        shapes_err, shapes = _phase("pipeline kernel shapes", phase_pipeline_shapes, card,
-                                    helpers[HELPERS.index(EXTRACTION_FLAG)], lanes)
+        shapes_err, shapes = _phase("pipeline and merged kernel shapes", phase_pipeline_shapes,
+                                    card, shape_queue, lanes)
         results = _phase("the other processes (join)", _join, helpers, lanes)
     except BaseException:
         for h in helpers:
@@ -2613,8 +2901,9 @@ def main():
          "launches_by_path": by_path("K1"),
          "launches_by_entry_and_path": by_path("K1 entries"),
          "by_lanes": {str(k): v for k, v in k1_times.items()},
-         "merkle_entries": k1m_times, "pipeline_shapes": shapes.get("K1", {}),
-         "sass": sass["K1"]},
+         "merkle_entries": k1m_times,
+         "pipeline_shapes": shapes.get(EXTRACTION_FLAG, {}).get("K1", {}),
+         "merged_shapes": shapes.get(MERGED_FLAG, {}).get("K1", {}), "sass": sass["K1"]},
         {"name": "ntt_rows", "route": "cuda",
          "source": "mp2_tpu_torch/csrc/ntt.cu",
          "replaces": "mp2_tpu/ops/ntt_pallas.py:237",
@@ -2627,7 +2916,8 @@ def main():
          "launches": counts["K2c"], "max_abs_err": max(k2c_err, shapes_err),
          **k2c_times[k2c_shape], "library_ms": None, "shape": k2c_shape,
          "launches_by_path": by_path("K2c"), "by_shape": k2c_times,
-         "pipeline_shapes": shapes.get("K2c", {}), "sass": sass["K2c"]},
+         "pipeline_shapes": shapes.get(EXTRACTION_FLAG, {}).get("K2c", {}),
+         "merged_shapes": shapes.get(MERGED_FLAG, {}).get("K2c", {}), "sass": sass["K2c"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

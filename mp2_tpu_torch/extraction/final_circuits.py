@@ -22,12 +22,14 @@ A jax-free copy of the parts of `mp2_tpu/extraction/final_circuits.py` that
 a block's extraction runs (mp2_tpu/models/circuit_pipeline.py:150-171):
 the PI widths and offsets, the block framework, the contract set, the host
 metadata re-encoding, `final_base_body`, the host PI functions and
-`FinalExtractionCircuits` with its `final_simple` member.  Only the imports
-change, and the three sets take the device their circuits are compiled for
-and proved on (`device="cuda"` unless the caller asks for the CPU).  The
-length set, the merge and no-provable bodies and their members wait for
-ROADMAP Queue 1 item 3b: `FinalExtractionCircuits` raises on `length=`,
-`merge=`, `merge_with=` and `no_provable=` instead of leaving them out.
+`FinalExtractionCircuits` with its `final_simple` member and, for a merged
+table (mp2_tpu/models/circuit_pipeline.py:437-533), `build_merge_body` and
+the `final_merge` member.  Only the imports change, and the three sets take
+the device their circuits are compiled for and proved on (`device="cuda"`
+unless the caller asks for the CPU).  The length set with its
+`final_lengthed` member waits for ROADMAP Queue 1 item 3b.3 and the
+no-provable body with its member for item 3b.4: `FinalExtractionCircuits`
+raises on `length=` and `no_provable=` instead of leaving them out.
 """
 
 from __future__ import annotations
@@ -498,6 +500,68 @@ def final_base_body(
     )
 
 
+def build_merge_body(
+    b: CircuitBuilder, block_pis, contract_pis, table_a_pis, table_b_pis
+):
+    """final_extraction merge (merge_circuit.rs:43-85): TWO singleton
+    values-extraction proofs over the same contract/block, combined with
+    the split-digest scheme — the witnessed flag picks which table is the
+    multiplier, and DV = HashToInt(H(fields(dv_mult))) * dv_ind
+    (digest.rs combine_to_digest).  Exposes merge flag = 1."""
+    from mp2_tpu_torch.circuit.gadgets.curve import (
+        curve_scalar_mul_hash128,
+        curve_select,
+        curve_zero,
+    )
+
+    for vp in (table_a_pis, table_b_pis):
+        b.connect(vp[_V_S], b.zero())
+        for a, c in zip(vp[_V_H], contract_pis[_C_SR]):
+            b.connect(a, c)
+    for a, c in zip(contract_pis[_C_H], block_pis[_B_SR]):
+        b.connect(a, c)
+    dm = curve_add(
+        b,
+        curve_add(
+            b,
+            curve_from_pi_targets(b, list(table_a_pis[_V_DM])),
+            curve_from_pi_targets(b, list(table_b_pis[_V_DM])),
+        ),
+        curve_from_pi_targets(b, list(contract_pis[_C_DM])),
+    )
+    is_a_mult = b.add_input()
+    b.connect(b.mul(is_a_mult, b.sub(is_a_mult, b.one())), b.zero())
+    dv_a = curve_from_pi_targets(b, list(table_a_pis[_V_DV]))
+    dv_b = curve_from_pi_targets(b, list(table_b_pis[_V_DV]))
+    zero = curve_zero(b)
+    ind = curve_add(
+        b,
+        curve_select(b, is_a_mult, zero, dv_a),
+        curve_select(b, is_a_mult, dv_b, zero),
+    )
+    mult = curve_add(
+        b,
+        curve_select(b, is_a_mult, dv_a, zero),
+        curve_select(b, is_a_mult, zero, dv_b),
+    )
+    mh = b.hash_no_pad(curve_to_pi_targets(b, mult))
+    dv = curve_scalar_mul_hash128(b, mh[0], mh[1], ind)
+    n = b.add(table_a_pis[_V_N], table_b_pis[_V_N])
+    b.register_public_inputs(
+        list(block_pis[_B_BH])
+        + list(block_pis[_B_PH])
+        + [block_pis[_B_BN]]
+        + curve_to_pi_targets(b, dv)
+        + curve_to_pi_targets(b, dm)
+        + [n, b.one()]
+    )
+
+    def assign(inputs, is_table_a_multiplier: bool):
+        inputs[is_a_mult] = 1 if is_table_a_multiplier else 0
+
+    return assign
+
+
 def final_merge_pi_values(
     block_pis, table_a_pis, table_b_pis, contract_dm,
     is_table_a_multiplier: bool,
@@ -559,20 +623,33 @@ class FinalExtractionCircuits:
         merge_with=None,
         device="cuda",
     ):
-        """`length`, `merge`, `merge_with` and `no_provable`: the
-        reference's `final_lengthed` (lengthed_circuit.rs), `final_merge`
-        (merge_circuit.rs) and `final_no_provable` (dummy_circuit.rs)
+        """`merge`: also builds a `final_merge` member combining TWO
+        values-set proofs (merge_circuit.rs) — table A from `values`, table
+        B from `merge_with` when given (e.g. a mapping table merged with a
+        single-slot multiplier table), else from `values` too.  `length`
+        and `no_provable`: the reference's `final_lengthed`
+        (lengthed_circuit.rs) and `final_no_provable` (dummy_circuit.rs)
         members, not ported, so any value but the default raises instead
         of leaving that member out."""
-        for option, given in (("length", length is not None), ("merge", merge),
-                              ("merge_with", merge_with is not None),
-                              ("no_provable", no_provable)):
-            if given:
-                raise NotImplementedError(
-                    f"FinalExtractionCircuits({option}=...): the lengthed, merge and "
-                    "no-provable members wait for ROADMAP Queue 1 item 3b")
+        if length is not None:
+            raise NotImplementedError(
+                "FinalExtractionCircuits(length=...): the length set and final_lengthed "
+                "wait for ROADMAP Queue 1 item 3b.3")
+        if no_provable:
+            raise NotImplementedError(
+                "FinalExtractionCircuits(no_provable=...): final_no_provable waits for "
+                "ROADMAP Queue 1 item 3b.4")
         cfg = config or test_config()
-        self.fw = RecursionFramework(cfg, EXT_W, set_height=1, device=device)
+        merge = bool(merge or merge_with is not None)
+        n_members = (
+            1
+            + (1 if length is not None else 0)
+            + (1 if merge else 0)
+            + (1 if no_provable else 0)
+        )
+        self.fw = RecursionFramework(
+            cfg, EXT_W, set_height=1 if n_members <= 2 else 2, device=device
+        )
 
         def build(b, children, foreign):
             final_base_body(
@@ -587,6 +664,21 @@ class FinalExtractionCircuits:
             "final_simple", 0, _pad_build(build),
             foreign=[block_fw.fw, contract.fw, values.fw],
         )
+        if merge:
+            def build_merge(b, children, foreign):
+                return build_merge_body(
+                    b,
+                    foreign[0].public_inputs(),
+                    foreign[1].public_inputs(),
+                    foreign[2].public_inputs(),
+                    foreign[3].public_inputs(),
+                )
+
+            values_b = merge_with if merge_with is not None else values
+            self.fw.add_aggregation_circuit(
+                "final_merge", 0, _pad_build(build_merge),
+                foreign=[block_fw.fw, contract.fw, values.fw, values_b.fw],
+            )
         self.fw.finalize()
 
     def prove(
@@ -606,6 +698,30 @@ class FinalExtractionCircuits:
         env = self.fw.prove_aggregation(
             "final_simple", [], (), pis,
             foreign_children=[block_env, contract_env, values_env],
+        )
+        return env, pis
+
+    def prove_merge(
+        self,
+        block_env: WrappedEnvelope,
+        contract_env: WrappedEnvelope,
+        table_a_env: WrappedEnvelope,
+        table_b_env: WrappedEnvelope,
+        is_table_a_multiplier: bool = False,
+    ):
+        from mp2_tpu_torch.field.ecgfp5 import Point
+
+        pis = _pad_vals(final_merge_pi_values(
+            block_env.user_inputs, table_a_env.user_inputs,
+            table_b_env.user_inputs,
+            Point.from_fields(contract_env.user_inputs[_C_DM]),
+            is_table_a_multiplier,
+        ))
+        env = self.fw.prove_aggregation(
+            "final_merge", [], (is_table_a_multiplier,), pis,
+            foreign_children=[
+                block_env, contract_env, table_a_env, table_b_env,
+            ],
         )
         return env, pis
 

@@ -35,7 +35,7 @@ only the imports change, `build_leaf_single_circuit` and
 and proved on (`device="cuda"` unless the caller asks for the CPU), and
 `_bits_to_u32s_be_bytes` is carried here from `mp2_tpu/extraction/circuits.py`.
 The mapping-of-mappings leaf and the state trie's account leaf wait for
-ROADMAP Queue 1 item 3b: `ValuesExtractionCircuits` raises on
+ROADMAP Queue 1 items 3b.5 and 3b.6: `ValuesExtractionCircuits` raises on
 `mapping_of_mappings=` instead of leaving that member out.
 """
 
@@ -623,7 +623,7 @@ class ValuesExtractionCircuits:
         if mapping_of_mappings is not None:
             raise NotImplementedError(
                 "the mapping-of-mappings leaf member waits for ROADMAP Queue 1 "
-                "item 3b")
+                "item 3b.5")
         cfg = config or test_config()
         self._table_info = list(table_info)
         self._value_id = value_id

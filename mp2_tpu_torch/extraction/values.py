@@ -7,7 +7,7 @@ digest DM committing to the table schema.
 
 A jax-free copy of `mp2_tpu/extraction/values.py` without the
 mapping-of-mappings leaf's values digest, which waits for that leaf's
-circuit (ROADMAP Queue 1 item 3b): only the imports change.
+circuit (ROADMAP Queue 1 item 3b.5): only the imports change.
 """
 
 from __future__ import annotations

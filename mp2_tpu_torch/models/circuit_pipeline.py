@@ -28,8 +28,7 @@ against the query + the table's verification keys.
 
 A jax-free copy of `mp2_tpu/models/circuit_pipeline.py`: only the imports
 change, and the circuit sets are built for the device the indexer is given
-(`device="cuda"` unless the caller asks for the CPU).  `MergedTableIndexer`
-waits for `final_merge` (ROADMAP Queue 1 item 3b.2).
+(`device="cuda"` unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -440,3 +439,103 @@ class CircuitTableIndexer:
 
     def verify(self, env: WrappedEnvelope) -> bool:
         return self.qc.verify(env)
+
+
+class MergedTableIndexer(CircuitTableIndexer):
+    """CircuitTableIndexer for a MERGED table: a mapping table (individual
+    rows) joined with a single-slot table whose columns repeat on every row
+    as the MULTIPLIER side of the split-digest scheme (merge_circuit.rs +
+    block_tree/mod.rs:69-95).
+
+    Extraction proves BOTH storage walks under their own fixed VKs and
+    combines them in `final_merge`; every row's cells tree carries the
+    multiplier cell, the rows tree enforces all rows agree on it, and
+    `block_leaf_bound` pins the merged extraction digest to the rows
+    tree's merged final digest with is_merge = 1 in-circuit."""
+
+    is_merge = True
+
+    def __init__(self, cfg, config=None, query_params=None, **kw):
+        qp = query_params or UniversalQueryParams(
+            num_columns=4, num_placeholders=4, num_predicate_ops=4,
+            num_result_ops=2, num_outputs=2,
+        )
+        super().__init__(cfg, config=config, query_params=qp, **kw)
+        self.column_ids = [
+            cfg.block_id, cfg.key_id, cfg.value_id, cfg.supply_id
+        ]
+
+    def _ensure_built(self, header: bytes):
+        if self._built:
+            return
+        cfg = self.cfg
+        self.vx = ValuesExtractionCircuits(
+            [cfg.column], cfg.value_id, config=self.config,
+            mapping=(cfg.slot, cfg.key_id),
+            branch_arities=self.branch_arities, device=self.device,
+        )
+        self.vx_b = ValuesExtractionCircuits(
+            [cfg.single_column], cfg.supply_id, config=self.config,
+            branch_arities=self.branch_arities, device=self.device,
+        )
+        self.cx = ContractExtractionCircuits(
+            cfg.contract_address, config=self.config, device=self.device
+        )
+        self.bx = BlockExtractionFramework(
+            config=self.config, device=self.device, **fixture_header_offsets(header)
+        )
+        self.fx = FinalExtractionCircuits(
+            self.bx, self.cx, self.vx, config=self.config,
+            merge_with=self.vx_b, device=self.device,
+        )
+        self.vdb = VerifiableDbCircuits(self.config, extraction=self.fx,
+                                        device=self.device)
+        self.qc = QueryCircuits(
+            self.config, self.query_params, ivc_framework=self.vdb.ivc,
+            row_tree_depth=self.row_tree_depth,
+            index_tree_depth=self.index_tree_depth,
+            tabular_rows=self.tabular_rows, device=self.device,
+        )
+        self._built = True
+
+    def _prove_extraction(self, blk: BlockFixture):
+        from mp2_tpu_torch.extraction.mpt_circuits import host_key_nibbles
+
+        cfg = self.cfg
+        assert blk.single_value is not None, (
+            "merged-table fixtures need the single multiplier slot"
+        )
+        paths = {
+            k: blk.storage.get_proof(SK.mapping_location(cfg.slot, k))
+            for k in sorted(blk.entries)
+        }
+        a_env, a_pis = self.vx.prove_trie(paths, {k: k for k in paths})
+        assert a_pis[95] == 0, "mapping walk must reach the trie root"
+
+        loc = SK.simple_slot_location(cfg.single_slot)
+        b_env, b_pis = self.vx_b.prove_trie(
+            {loc: blk.storage.get_proof(loc)},
+            {loc: host_key_nibbles(loc)},
+        )
+        assert b_pis[95] == 0, "single-slot walk must reach the trie root"
+
+        contract_env, _ = self.cx.prove_state_path(
+            blk.state.get_proof(cfg.contract_address)
+        )
+        block_env, _ = self.bx.prove_header(blk.header_rlp)
+        # table A (mapping) = individual rows; table B (single) = multiplier
+        return self.fx.prove_merge(
+            block_env, contract_env, a_env, b_env,
+            is_table_a_multiplier=False,
+        )
+
+    def _row_cells(self, blk: BlockFixture, key: bytes, value: int):
+        return [
+            Cell(self.cfg.value_id, value, False),
+            Cell(self.cfg.supply_id, blk.single_value, True),
+        ]
+
+    def _row_values(self, blk: BlockFixture, key: bytes, value: int):
+        return [
+            blk.number, int.from_bytes(key, "big"), value, blk.single_value
+        ]

@@ -1,14 +1,15 @@
 """The pipeline's table configuration and block fixtures.
 
 The part of `mp2_tpu/models/pipeline.py` that the circuit-driven indexer
-(`models.circuit_pipeline.CircuitTableIndexer`) needs: the circuit names,
-`MappingTableConfig` (a table extracted from one mapping slot), the fixture
-chain `make_chain` builds (each block's storage trie, state trie and RLP
-header), the table's query schema (`MappingTableConfig.schema()`) and
-`IvcOutput`.  A jax-free copy in which only the imports change.
+(`models.circuit_pipeline.CircuitTableIndexer` and `MergedTableIndexer`)
+needs: the circuit names, `MappingTableConfig` (a table extracted from one
+mapping slot), `MergedTableConfig` (a mapping table joined with a single
+slot), the fixture chain `make_chain` builds (each block's storage trie,
+state trie and RLP header), the tables' query schemas and `IvcOutput`.  A
+jax-free copy in which only the imports change.
 
-Not ported yet: `MergedTableConfig` comes with `final_merge` (ROADMAP Queue 1
-item 3b.2); the host-golden `TableIndexer` with item 5.
+Not ported yet: the host-golden `TableIndexer`, which waits for ROADMAP
+Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -58,6 +59,35 @@ class MappingTableConfig:
                 ZkColumn("block", self.block_id, "primary_index"),
                 ZkColumn("key", self.key_id, "secondary_index"),
                 ZkColumn("value", self.value_id),
+            ],
+        )
+
+
+@dataclass
+class MergedTableConfig(MappingTableConfig):
+    """A MERGED table (final_extraction merge_circuit.rs): a mapping table
+    (individual rows) joined with a single-slot table whose columns repeat
+    on every row (the multiplier side of the split-digest scheme) — e.g.
+    ERC-20 balances merged with the total supply."""
+
+    single_slot: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.single_slot != self.slot
+        self.supply_id = V.identifier_for_value_column(
+            self.single_slot, 0, 256, 0, self.contract_address, self.chain_id
+        )
+        self.single_column = simple_column(self.single_slot, self.supply_id)
+
+    def schema(self) -> ZkTable:
+        return ZkTable(
+            "t",
+            [
+                ZkColumn("block", self.block_id, "primary_index"),
+                ZkColumn("key", self.key_id, "secondary_index"),
+                ZkColumn("value", self.value_id),
+                ZkColumn("supply", self.supply_id),
             ],
         )
 

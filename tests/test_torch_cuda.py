@@ -1,9 +1,11 @@
 """K1, K2 (and its entries), K2c, P1, the batched prover, the fixed-data
-cache and the pipeline's tabular query on a CUDA card.  These tests skip where there is no card.  The file imports no JAX, so it also runs on a machine without it:
+cache, the pipeline's tabular query and the merged table's indexer on a CUDA
+card.  These tests skip where there is no card.  The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
 """
 
+import gc
 import json
 import os
 
@@ -315,3 +317,120 @@ def test_pipeline_tabular_query_on_card(cuda):
     for key in sorted(shapes.keys - seen, key=repr):
         _, _, _, err = S.check_shape(card, key, rng, cuda)
         assert err == 0
+
+
+@pytest.mark.cuda
+def test_merged_table_pipeline_on_card(cuda):
+    """tests/test_merged_table.py:122-168 in the port, on chip_smoke.py's
+    contract: MergedTableIndexer (default branch arities, the four-column
+    query sets) applies blocks 100 and 101, each block's extraction joined
+    by final_merge (accepted by ix.fx), its rows tree carrying the supply
+    cell, block_leaf_bound then block_parent_bound with is_merge = 1,
+    ivc_first then ivc_subsequent (the last accepted); then SUM(value),
+    MAX(supply) over [100, 101] is proved and reveals 720 and 370.  Every
+    set is held against the JAX package's record; every member proof's PIs
+    (the walks' roots, the account leaf's, the header's, final_merge's, the
+    cells, rows, block and IVC members', the query's) against
+    merged_golden.json, and the result and revealed values too.  Prints
+    each step's wall and the card's name and power limit.  About half an
+    hour: the sets take most of it."""
+    import subprocess
+    import sys
+    import time
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import chip_smoke as S
+    from mp2_tpu_torch.models.circuit_pipeline import MergedTableIndexer
+
+    golden = {}
+    for name in ("extraction", "final_extraction", "vdb", "merged"):
+        with open(os.path.join(repo, S.TESTDATA, f"{name}_golden.json")) as f:
+            golden[name] = json.load(f)
+    x, fin, v, mg = (golden[k] for k in ("extraction", "final_extraction", "vdb", "merged"))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip() or \
+        torch.cuda.get_device_name(0)
+    gs = S.merged_sets_golden(mg, (1, 2, 3))
+    cfg, chain = S._merged_chain()
+    ix = MergedTableIndexer(cfg, config=test_config(), device=cuda)
+    walls = {}
+    t0 = time.perf_counter()
+    with S._timed_sets(walls):
+        ix._ensure_built(chain[0].header_rlp)
+    setup = time.perf_counter() - t0
+    values, vdb = walls["ValuesExtractionCircuits"], walls["VerifiableDbCircuits"][0]
+    S._check_set("merged values (mapping)", ix.vx.fw, x["set"], values[0])
+    for name, fw, wall in (("vx_b", ix.vx_b.fw, values[1]),
+                           ("fx", ix.fx.fw, walls["FinalExtractionCircuits"][0]),
+                           ("block", ix.vdb.block, vdb), ("ivc", ix.vdb.ivc, vdb)):
+        S._check_set(f"merged {name}", fw, gs[name], wall)
+    for name, fw, cls in (("contract", ix.cx.fw, "ContractExtractionCircuits"),
+                          ("block", ix.bx.fw, "BlockExtractionFramework")):
+        S._check_set(f"merged extraction {name}", fw, fin["sets"][name], walls[cls][0])
+    S._vdb_sets("merged vdb", ix.vdb, v["light"], ("cells", "rows"))
+    qp = mg["query"]["params"]
+    assert [ix.row_tree_depth, ix.index_tree_depth, ix.tabular_rows] == [
+        qp["row_tree_depth"], qp["index_tree_depth"], qp["tabular_rows"]]
+    for name in S.QUERY_SETS:
+        S._check_set(f"merged query {name}", getattr(ix.qc, name), mg["query"][name],
+                     walls["QueryCircuits"][0])
+    S._settled()  # as the script's processes: the set-up's objects frozen, no collector
+    try:
+        _merged_blocks_and_query(S, ix, chain, mg, card, setup, walls)
+    finally:
+        gc.enable()
+        gc.unfreeze()
+
+
+def _merged_blocks_and_query(S, ix, chain, mg, card, setup, walls):
+    """test_merged_table_pipeline_on_card's proofs and checks, after its
+    set-up."""
+    import time
+
+    fws = {"vx": ix.vx.fw, "vx_b": ix.vx_b.fw, "cx": ix.cx.fw, "bx": ix.bx.fw,
+           "fx": ix.fx.fw, **{n: getattr(ix.vdb, n) for n in S.VDB_SETS},
+           **{n: getattr(ix.qc, n) for n in S.QUERY_SETS}}
+    members, envs, steps = [], [], []
+    with S._member_log(fws, members, envs):
+        for blk in chain:
+            first, t0 = len(members), time.perf_counter()
+            final_env = ix.apply_block(blk)
+            torch.cuda.synchronize()
+            steps.append((f"block {blk.number}", first, time.perf_counter() - t0))
+            assert final_env.member == "final_merge" and ix.fx.verify(final_env)
+        assert ix.vdb.ivc.verify(ix.ivc_env) and ix.ivc_env.member == "ivc_subsequent"
+        sql, values = S.MERGED_QUERY
+        first, t0 = len(members), time.perf_counter()
+        res, env, reveal = ix.run_query(sql, S.Placeholders(dict(values)))
+        torch.cuda.synchronize()
+        steps.append(("query", first, time.perf_counter() - t0))
+    assert ix.verify(env)
+    got = [(m["set"], m["member"], [int(u) for u in e.user_inputs])
+           for m, (_, _, e) in zip(members, envs)]
+    ends = [first for _, first, _ in steps[1:]] + [len(got)]
+    for (label, first, wall), end in zip(steps, ends):
+        print(f"merged {label}: {end - first} member proofs, each wrapped, in {wall:.3f} s; "
+              f"{card}")
+    for (label, first, _), end, g in zip(steps[:2], ends, mg["host"]["blocks_100_101"]):
+        own = got[first:end]
+        assert [m for _, m, _ in own[:9]] == S.MERGED_PROOFS
+        want = {c["set"]: c["pis"] for c in g["calls"][:5]}
+        assert own[3][2][:31] == want["vx"][:31] and own[3][2][95] == 0
+        assert own[5][2][:31] == want["vx_b"][:31] and own[5][2][95] == 0
+        assert own[6][2][:len(want["cx"])] == want["cx"]
+        assert own[7][2][:len(want["bx"])] == want["bx"]
+        assert own[8][2] == want["fx"] == g["final"]
+        assert [(s, m, p) for s, m, p in own[9:]] == [
+            (c["set"], c["member"], c["pis"]) for c in g["calls"][5:]], label
+    members_101 = [m for _, m, _ in got[ends[0]:ends[1]]]
+    assert "block_parent_bound" in members_101 and "ivc_subsequent" in members_101
+    gq = mg["host"]["query"]
+    assert got[ends[1]:] == [(c["set"], c["member"], c["user_pis"]) for c in gq["calls"]]
+    assert [int(u) for u in reveal] == gq["reveal"] and env.member == gq["member"]
+    assert S._query_result_record(res) == gq["result"] and res.rows == [[720, 370]]
+    revealed = [int("".join(f"{limb:08x}" for limb in reveal[i:i + 8]), 16) for i in (12, 20)]
+    assert revealed == [720, 370]
+    print(f"merged table on the card: set-up {setup:.3f} s (" + ", ".join(
+        f"{k} {sum(w):.3f} s" for k, w in walls.items()) + f"), then "
+        + ", ".join(f"{label} {wall:.3f} s" for label, _, wall in steps) + f"; {card}")

@@ -615,12 +615,46 @@ def test_block_extraction_circuit_matches_reference(without_fixed_commitment):
             CASES["block_header"](pkg)[0].check_witness(CASES["block_header"](pkg)[1], bad)
 
 
+class _SetRecorder:
+    """Stands for RecursionFramework in final_circuits: records the set's
+    height and each member's name, children and foreign sets; builds
+    nothing."""
+
+    def __init__(self, config, num_user_pis, set_height, device):
+        self.set_height, self.members = set_height, []
+
+    def add_aggregation_circuit(self, name, n_children, build_fn, foreign=()):
+        self.members.append((name, n_children, [fw.name for fw in foreign]))
+
+    def finalize(self):
+        pass
+
+
 @pytest.mark.parametrize("option", [{"length": object()}, {"merge": True},
-                                    {"merge_with": object()}, {"no_provable": True}],
+                                    {"merge_with": "values_b"}, {"no_provable": True}],
                          ids=["length", "merge", "merge_with", "no_provable"])
-def test_unported_final_members_are_not_left_out_silently(option):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        final.FinalExtractionCircuits(None, None, None, device="cpu", **option)
+def test_unported_final_members_are_not_left_out_silently(option, monkeypatch):
+    """`length=` and `no_provable=` raise, naming ROADMAP Queue 1 items 3b.3
+    and 3b.4; `merge=` and `merge_with=` (item 3b.2) add `final_merge`
+    beside `final_simple`, over the block, contract and both values sets,
+    in a set of height 1 as mp2_tpu/extraction/final_circuits.py:897-906
+    sizes it."""
+    if "length" in option or "no_provable" in option:
+        item = "3b.3" if "length" in option else "3b.4"
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            final.FinalExtractionCircuits(None, None, None, device="cpu", **option)
+        return
+    monkeypatch.setattr(final, "RecursionFramework", _SetRecorder)
+    sets = {n: SimpleNamespace(fw=SimpleNamespace(name=n))
+            for n in ("block", "contract", "values", "values_b")}
+    if "merge_with" in option:
+        option = {"merge_with": sets["values_b"]}
+    fx = final.FinalExtractionCircuits(sets["block"], sets["contract"], sets["values"],
+                                       device="cpu", **option)
+    table_b = "values_b" if "merge_with" in option else "values"
+    assert fx.fw.set_height == 1
+    assert fx.fw.members == [("final_simple", 0, ["block", "contract", "values"]),
+                             ("final_merge", 0, ["block", "contract", "values", table_b])]
 
 
 # ---------------------------------------------------------------------------

@@ -214,7 +214,7 @@ def test_prove_batch_rejects_public_inputs_of_another_length(tree_node):
 def test_port_imports_no_jax():
     """Importing every module of the port (and chip_smoke.py) leaves jax out
     of sys.modules; the walk reaches the recursion, vdb, extraction and query
-    slices' modules."""
+    slices' modules, the work queue and the API."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mp2_tpu_torch\n"
@@ -241,7 +241,8 @@ def test_port_imports_no_jax():
         "        'parsil.expand', 'parsil.assembler', 'parsil.validate', 'parsil.isolator',\n"
         "        'vdb.query.ops', 'vdb.query.api', 'vdb.query.universal',\n"
         "        'vdb.query.merkle_path', 'vdb.query.chunks', 'vdb.query.planner',\n"
-        "        'circuit.public_inputs', 'models.pipeline', 'models.circuit_pipeline']\n"
+        "        'circuit.public_inputs', 'models.pipeline', 'models.circuit_pipeline',\n"
+        "        'parallel.workqueue', 'api']\n"
         "missing = [m for m in want if 'mp2_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
